@@ -8,17 +8,30 @@ Phases; any failure exits non-zero:
                Without a CUDA card the script stops here: no CPU fallback.
   2. build   - nvcc builds every kernel from graph_hscn_tpu_torch/csrc/, one
                process per source, all at once; prints seconds and ptxas -v.
-  3. kernels - each kernel at the main path's shapes (a real VOC-superpixels
-               sparse batch, N=9784 nodes, F=64 and 21, float32 and bfloat16
-               inputs) against its plain PyTorch version; CUDA-event times of
-               kernel, plain version and one library call, beside the bound.
-  4. train   - run_experiment on configs/GCN/voc_superpixels_GCN_sparse.yaml at
-               its full width for 2 epochs: finite losses, and the kernels'
-               launch counts from that run alone (8 csr_spmm launches a train
-               step and 4 an eval batch); a torch.profiler window over
-               steady train steps (device busy time, idle share, kernels by
-               time); then the full-width model on a small batch, on the
-               card and on the CPU, logits and gradients agree.
+  3. kernels - each sparse kernel at the VOC path's shapes (a real
+               VOC-superpixels sparse batch, N=9784 nodes, F=64 and 21,
+               float32 and bfloat16 inputs) against its plain PyTorch
+               version; CUDA-event times of kernel, plain version and one
+               library call, beside the bound.  Then the fused GCN stack's
+               forward and backward kernels at the peptides batch (G=32
+               graphs, slot 392, 9 -> 16 -> 16 -> 10, float32 and bfloat16,
+               no dropout, given bits and the seeded Philox stream) against
+               their plain versions, beside the bound and the unfused dense
+               stack (the MPNN's torch.bmm route) as a yardstick.  Device
+               times: CUDA events over calls queued behind a device sleep
+               (at most 256 launches queued), or for a call of more
+               launches the profiler's summed device time (time_ms).
+  4. train   - run_experiment on configs/GCN/voc_superpixels_GCN_sparse.yaml,
+               configs/GCN/peptides_func_GCN.yaml and
+               configs/GCN/peptides_func_GCN_fused.yaml at their full width
+               for 2 epochs each: finite losses, and each run's kernel launch
+               counts from that run alone (VOC: 8 csr_spmm launches a train
+               step and 4 an eval batch; fused peptides: one fused_gcn_fwd a
+               train step and an eval batch, one fused_gcn_bwd a train step;
+               unfused peptides: none); a torch.profiler window over steady
+               train steps of each (device busy time, idle share, kernels by
+               time); then each full-width model on a 4-graph batch, on the
+               card and on the CPU: logits and gradients agree.
 The last three lines are the {"kernels": [...]} record, nvidia-smi's line, and
 {"ok": true, "device": {...}}.
 """
@@ -34,9 +47,14 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "GCN" / "voc_superpixels_GCN_sparse.yaml"
+PEPTIDES = REPO / "configs" / "GCN" / "peptides_func_GCN.yaml"
+PEPTIDES_FUSED = REPO / "configs" / "GCN" / "peptides_func_GCN_fused.yaml"
 EPOCHS = 2
+FUSED_SEED = 20261016   # the seeded-dropout case's Philox key
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and float32
 # operations/s outside the tensor cores (the kernels' FMAs run there).
 HBM_BYTES_PER_S = 3.35e12
@@ -56,12 +74,40 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def profiled(fn, calls: int) -> tuple[list, float]:
+    """(device operations, host wall ms) of ``calls`` calls of ``fn`` under
+    torch.profiler: kernels, copies and fills, not user annotations (the
+    optimizer's record_function range spans kernels already counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    return dev, wall_ms
+
+
+# Launches queued behind the device sleep stay well inside the card's launch
+# queue (~1k entries): once it is full the host waits on the device, and the
+# events would time the host's launch rate instead.
+MAX_QUEUED = 256
+
+
 def time_ms(fn, iters: int = 100, warmup: int = 20) -> tuple[float, float]:
     """(device ms, host ms) of one call.  Host: wall time of ``iters``
-    calls ending in a sync.  Device: CUDA events around ``iters`` calls
-    queued behind a device sleep longer than the host needs to enqueue
-    them, so the events time back-to-back execution on the card and not
-    the host's launch rate."""
+    calls ending in a sync.  Device: CUDA events around n calls queued
+    behind a device sleep longer than the host needs to enqueue them, so
+    the events time back-to-back execution on the card; n = iters, cut so
+    that n times the call's device operations (counted by the profiler)
+    stays within MAX_QUEUED.  A call of more operations than that is timed
+    by the profiler instead: its device operations' summed durations."""
     import torch
     for _ in range(warmup):
         fn()
@@ -71,16 +117,25 @@ def time_ms(fn, iters: int = 100, warmup: int = 20) -> tuple[float, float]:
         fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    calls = 3
+    dev, _ = profiled(fn, calls)
+    ops = len(dev) / calls
+    if ops > MAX_QUEUED:
+        return sum(e.time_range.elapsed_us() for e in dev) / calls / 1e3, \
+            host_ms
+    # (No device operations seen: the profiler is blind here; few calls.)
+    n = (max(1, min(iters, int(MAX_QUEUED // ops))) if ops
+         else min(iters, 10))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     # ~2e6 clock cycles a millisecond at the card's ~2 GHz.
-    torch.cuda._sleep(int(1.5 * host_ms * iters * 2e6) + 2_000_000)
+    torch.cuda._sleep(int(1.5 * host_ms * n * 2e6) + 2_000_000)
     start.record()
-    for _ in range(iters):
+    for _ in range(n):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters, host_ms
+    return start.elapsed_time(end) / n, host_ms
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -292,13 +347,39 @@ def phase_train():
     return launches
 
 
-def phase_profile(steps: int = 6):
-    """Where a train step's time goes: the fit loop's body (move the batch,
-    train step) over ``steps`` steady steps of the main path's model and
-    batches, under torch.profiler; device busy time, idle share, and the
-    kernels by device time."""
+def profile_steps(label: str, step, make_batch, steps: int = 6) -> None:
+    """Where a train step's time goes: ``step(make_batch(i))`` over
+    ``steps`` steady steps (after 3 warm-up steps) under torch.profiler;
+    device busy time, idle share, and the kernels by device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):   # warm-up
+        step(make_batch(i))
+    torch.cuda.synchronize()
+    it = iter(range(steps))
+    dev, wall_ms = profiled(lambda: step(make_batch(next(it))), steps)
+    if not dev:
+        print(f"[profile] {label}: the profiler recorded no device events: "
+              "device busy time not measured", flush=True)
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    print(f"[profile] {label}: {steps} train steps (profiler on): wall "
+          f"{wall_ms / steps:.3f} ms a step, device busy "
+          f"{busy_ms / steps:.3f} ms a step, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {len(dev) / steps:.1f} device "
+          "operations a step", flush=True)
+    by_name: dict[str, list[float]] = {}
+    for e in dev:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
+    for name, ts in top:
+        print(f"[profile]   {sum(ts) / steps:8.2f} us a step  "
+              f"{len(ts) / steps:5.1f} a step  {name[:90]}")
+
+
+def phase_profile():
+    """The VOC path's fit-loop body (move the batch, train step)."""
+    import torch
 
     from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.data.pipeline import DataModule
@@ -318,38 +399,8 @@ def phase_profile(steps: int = 6):
     gen = torch.Generator(device="cuda").manual_seed(0)
     step, _ = make_train_step(model, opt, cfg.training.loss_fn,
                               node_level=True, generator=gen)
-    for b in batches[:3]:   # warm-up
-        step(b.to("cuda"))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            step(batches[i % len(batches)].to("cuda"))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device operations: kernels, copies, fills.  User annotations (the
-    # optimizer's record_function range) span kernels already counted.
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    if not dev:
-        print("[profile] the profiler recorded no device events: device "
-              "busy time not measured", flush=True)
-        return
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    print(f"[profile] {steps} train steps (profiler on): wall "
-          f"{wall_ms / steps:.3f} ms a step, device busy "
-          f"{busy_ms / steps:.3f} ms a step, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, {len(dev) / steps:.1f} device "
-          "operations a step", flush=True)
-    by_name: dict[str, list[float]] = {}
-    for e in dev:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    for name, ts in top:
-        print(f"[profile]   {sum(ts) / steps:8.2f} us a step  "
-              f"{len(ts) / steps:5.1f} a step  {name[:90]}")
+    profile_steps("VOC sparse GCN", step,
+                  lambda i: batches[i % len(batches)].to("cuda"))
 
 
 def phase_reference():
@@ -401,6 +452,326 @@ def phase_reference():
           f"relative error {worst:.2e}", flush=True)
 
 
+def peptides_setup(path: Path, fused: bool):
+    """(cfg, dm, ds, model) at a peptides config's full width: the data
+    with dense slots, the device-resident dataset of all its graphs on the
+    card, and the model the runner builds for it (weights from seed 0)."""
+    import torch
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
+    from graph_hscn_tpu_torch.models.mpnn import build_mpnn
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.device_data import DeviceDataset
+
+    cfg = load_config(path)
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    if not dm.enable_dense_slots():
+        fail(f"{path.name}: the graphs do not fit dense slots")
+    ds = DeviceDataset.build(dm.graphs, slot=dm.slot_nodes, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    if fused:
+        model = FusedDenseGCN(dm.num_features, cfg.mpnn.hidden_channels,
+                              dm.num_classes, cfg.mpnn.num_layers,
+                              dropout=cfg.mpnn.dropout, generator=gen)
+    else:
+        model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
+                           compat=cfg.compat.double_relu, generator=gen)
+    return cfg, dm, ds, model.cuda()
+
+
+def fused_bound(G: int, S: int, dims: list, esize: int, direction: str,
+                bits: bool) -> tuple[float, str]:
+    """The least time of one fused-stack call: each input read once and
+    each output written once, against the float32 FMA rate (no tensor
+    cores under matmul_precision highest)."""
+    L = len(dims) - 1
+    hidden = sum(G * S * f for f in dims[1:-1])
+    params = (sum(dims[l] * dims[l + 1] for l in range(L)) * esize
+              + sum(dims[1:]) * 4)
+    base = G * S * S * esize + G * S * dims[0] * esize + params
+    mac_a = sum(G * S * S * dims[l + 1] for l in range(L))
+    mac_w = sum(G * S * dims[l] * dims[l + 1] for l in range(L))
+    if direction == "fwd":
+        nbytes = (base + hidden * esize + G * S * dims[-1] * 4
+                  + (hidden * 4 if bits else 0))
+        ops = 2 * (mac_a + mac_w)
+    else:   # acts and g in; dx, dW and db out
+        nbytes = (base + hidden * esize + G * S * dims[-1] * 4
+                  + G * S * dims[0] * esize
+                  + sum(dims[l] * dims[l + 1] + dims[l + 1]
+                        for l in range(L)) * 4)
+        ops = 2 * (mac_a + 2 * mac_w)
+    return bound_ms(nbytes, ops)
+
+
+def phase_fused_kernels():
+    """The fused GCN stack's two kernels at the peptides batch shape,
+    against their plain versions; returns their records (without launch
+    counts)."""
+    import torch
+
+    from graph_hscn_tpu_torch.models.layers import GCNConv
+    from graph_hscn_tpu_torch.ops.fused_gcn import (dropout_bits_plain,
+                                                    dropout_threshold,
+                                                    folded_operator,
+                                                    fused_gcn_bwd,
+                                                    fused_gcn_bwd_plain,
+                                                    fused_gcn_fwd,
+                                                    fused_gcn_fwd_plain)
+    from graph_hscn_tpu_torch.train.device_data import assemble
+
+    cfg, dm, ds, model = peptides_setup(PEPTIDES_FUSED, fused=True)
+    G, S = cfg.data.batch_size, ds.slot
+    idx = torch.as_tensor(dm.split_idx["train"][:G], dtype=torch.int32,
+                          device="cuda")
+    batch = assemble(ds, idx)
+    adj = batch.dense_adj
+    x32 = batch.node_feat.reshape(G, S, -1)
+    params = model.params()
+    dims = [x32.shape[-1]] + [p["kernel"].shape[1] for p in params]
+    rate = float(cfg.mpnn.dropout)
+    thr = dropout_threshold(rate)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g_out = torch.randn(G, S, dims[-1], device="cuda", generator=gen)
+    bits = [torch.randint(-2 ** 31, 2 ** 31, (G, S, f), dtype=torch.int32,
+                          device="cuda", generator=gen) for f in dims[1:-1]]
+    seed_dev = torch.tensor([FUSED_SEED], dtype=torch.int64, device="cuda")
+    print(f"[fused] peptides batch: G={G} S={S} widths {dims}, "
+          f"{int(adj.sum())} edges, {int(batch.node_mask.sum())} nodes",
+          flush=True)
+    cases = []
+    worst = {"fused_gcn_fwd": 0.0, "fused_gcn_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        a_hat = folded_operator(adj).to(dtype).contiguous()
+        x = x32.to(dtype).contiguous()
+        ws = [p["kernel"].detach().to(dtype).contiguous() for p in params]
+        bs = [p["bias"].detach().float().contiguous() for p in params]
+        # bf16: the same rounding points give the same bf16 values; a
+        # kernel without one of them fails 1e-4 (tests/test_torch_fused_gcn.py
+        # test_bf16_tolerance_catches_a_missing_rounding_point).
+        tol_rel = 1e-5 if f32 else 1e-4
+        for kind in ("none", "bits", "seed"):
+            r = 0.0 if kind == "none" else rate
+            d_kernel = {"none": None, "bits": {"bits": bits},
+                        "seed": {"seed": seed_dev}}[kind]
+            d_plain = {"none": None, "bits": {"bits": bits},
+                       "seed": {"seed": FUSED_SEED}}[kind]
+            outs = fused_gcn_fwd(a_hat, x, ws, bs, r, d_kernel)
+            refs = fused_gcn_fwd_plain(a_hat, x, ws, bs, r, d_plain)
+            acts = refs[:-1]
+            back = fused_gcn_bwd(a_hat, x, ws, acts, g_out, r)
+            back_ref = fused_gcn_bwd_plain(a_hat, x, ws, acts, g_out, r)
+            torch.cuda.synchronize()
+            errs, ratios = {}, {}
+            for name, got, want in (
+                    ("fused_gcn_fwd", outs, refs),
+                    ("fused_gcn_bwd", [back[0]] + back[1] + back[2],
+                     [back_ref[0]] + back_ref[1] + back_ref[2])):
+                e = ratio = 0.0
+                for o, w in zip(got, want):
+                    err = float((o.float() - w.float()).abs().max())
+                    tol = tol_rel * max(float(w.float().abs().max()), 1e-6)
+                    if not o.isfinite().all() or err > tol:
+                        fail(f"{name} {dtype} dropout {kind}: max |err| "
+                             f"{err:.3e} > tolerance {tol:.3e}")
+                    e, ratio = max(e, err), max(ratio, err / tol)
+                errs[name], ratios[name] = e, ratio
+                if f32:
+                    worst[name] = max(worst[name], e)
+            if kind == "seed":
+                for l, h in enumerate(outs[:-1]):
+                    b = dropout_bits_plain(FUSED_SEED, G, S, h.shape[-1], l,
+                                           "cuda")
+                    dropped = b < thr
+                    if h[dropped].any():
+                        fail(f"fused_gcn_fwd {dtype}: an element the Philox "
+                             "bits drop is not 0")
+                    share = float(dropped.float().mean())
+                    if abs(share - rate) > 0.01:
+                        fail(f"seeded dropout drops {share:.4f}, rate {rate}")
+            esize = x.element_size()
+            for name, kern, plain in (
+                    ("fused_gcn_fwd",
+                     lambda: fused_gcn_fwd(a_hat, x, ws, bs, r, d_kernel),
+                     lambda: fused_gcn_fwd_plain(a_hat, x, ws, bs, r,
+                                                 d_plain)),
+                    ("fused_gcn_bwd",
+                     lambda: fused_gcn_bwd(a_hat, x, ws, acts, g_out, r),
+                     lambda: fused_gcn_bwd_plain(a_hat, x, ws, acts, g_out,
+                                                 r))):
+                direction = name[-3:]
+                b_ms, b_by = fused_bound(G, S, dims, esize, direction,
+                                         kind == "bits")
+                k_ms, k_host = time_ms(kern)
+                p_ms, _ = time_ms(plain)
+                case = dict(name=name, dtype=str(dtype).replace("torch.", ""),
+                            dropout=kind, max_abs_err=errs[name],
+                            ms=k_ms, plain_ms=p_ms, library_ms=None,
+                            bound_ms=b_ms, bound_by=b_by)
+                cases.append(case)
+                print(f"[fused] {name} {case['dtype']:8s} dropout "
+                      f"{kind:4s} err {errs[name]:.2e} ({ratios[name]:.3f} "
+                      f"of tol {tol_rel:.0e}*max|ref| an output) device: "
+                      f"kernel {k_ms * 1e3:8.2f} us  "
+                      f"plain {p_ms * 1e3:8.2f} us  bound {b_ms * 1e3:6.2f} "
+                      f"us ({b_by}); host a call {k_host * 1e3:6.2f} us",
+                      flush=True)
+    # Yardstick: the unfused dense stack, the MPNN's torch.bmm route, at the
+    # same shape in float32 (forward without dropout, and forward+backward).
+    convs = []
+    for p in params:
+        conv = GCNConv(p["kernel"].shape[0], p["kernel"].shape[1]).cuda()
+        with torch.no_grad():
+            conv.weight.copy_(p["kernel"].t())
+            conv.bias.copy_(p["bias"])
+        convs.append(conv)
+    adj_n, diag = GCNConv.normalize_dense(adj)
+    xf = batch.node_feat
+    g_flat = g_out.reshape(G * S, -1)
+
+    def dense_stack():
+        h = xf
+        for i, conv in enumerate(convs):
+            h = conv(h, None, None, None, num_nodes=G * S, dense_adj=adj_n,
+                     dense_diag=diag)
+            if i < len(convs) - 1:
+                h = torch.relu(h)
+        return h
+
+    with torch.no_grad():
+        y_fwd, _ = time_ms(dense_stack)
+    y_both, _ = time_ms(lambda: dense_stack().backward(g_flat))
+    print(f"[fused] yardstick, unfused dense stack (torch.bmm, float32): "
+          f"forward {y_fwd * 1e3:.2f} us, forward+backward "
+          f"{y_both * 1e3:.2f} us (backward {1e3 * (y_both - y_fwd):.2f} us "
+          "by difference); no single library call computes the fused "
+          "function", flush=True)
+    records = {c["name"]: c for c in cases
+               if (c["dtype"], c["dropout"]) == ("float32", "seed")}
+    src = "graph_hscn_tpu_torch/csrc/{}.cu"
+    pallas = "graph_hscn_tpu/ops/pallas/fused_gcn_kernel.py:{}"
+    return [
+        {"name": "fused_gcn_fwd", "route": "cuda",
+         "source": src.format("fused_gcn_fwd"), "replaces": pallas.format(51),
+         **_timing(records["fused_gcn_fwd"], worst["fused_gcn_fwd"])},
+        {"name": "fused_gcn_bwd", "route": "cuda",
+         "source": src.format("fused_gcn_bwd"),
+         "replaces": pallas.format(103),
+         **_timing(records["fused_gcn_bwd"], worst["fused_gcn_bwd"])},
+    ]
+
+
+def phase_train_peptides(path: Path, fused: bool) -> dict:
+    """A peptides config through run_experiment on the card, its launch
+    counts from that run alone.  Returns {kernel: launches}."""
+    import torch
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import edge_sddmm
+    from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm
+    from graph_hscn_tpu_torch.ops.fused_gcn import (fused_gcn_bwd,
+                                                    fused_gcn_fwd)
+    from graph_hscn_tpu_torch.runner import run_experiment
+
+    cfg = load_config(path)
+    cfg.training.epochs = EPOCHS
+    cfg.training.eval_period = 1
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (csr_spmm, edge_sddmm, fused_gcn_fwd, fused_gcn_bwd)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    result = run_experiment(cfg, step_timing=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    steps, evals = result.num_train_steps, result.num_eval_batches
+    want = {"csr_spmm": 0, "edge_sddmm": 0,
+            "fused_gcn_fwd": steps + evals if fused else 0,
+            "fused_gcn_bwd": steps if fused else 0}
+    print(f"[train] {path.name}: {type(result.model).__name__}, "
+          f"{result.epochs_run} epochs, {steps} train steps, {evals} eval "
+          f"batches in {wall:.2f} s; launches {launches} (expected {want})",
+          flush=True)
+    losses = [v for h in result.history for k, v in h.items()
+              if k.endswith("_loss")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"{path.name}: non-finite or missing losses: {losses}")
+    if launches != want:
+        fail(f"{path.name}: launches {launches}, want {want}")
+    ms = [s * 1e3 for s in result.step_seconds]
+    print(f"[train] {path.name} step ms (synchronised host clock): median "
+          f"{statistics.median(ms):.3f}, first {ms[0]:.3f}, min "
+          f"{min(ms):.3f}, max {max(ms):.3f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    for h in result.history:
+        print(f"[train] {h}")
+    return launches
+
+
+def phase_profile_peptides(fused: bool):
+    """A peptides train step (assemble the batch on the card, train step)
+    under the profiler."""
+    import torch
+
+    from graph_hscn_tpu_torch.train.device_data import (assemble,
+                                                        epoch_permutation)
+    from graph_hscn_tpu_torch.train.loop import make_train_step
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    path = PEPTIDES_FUSED if fused else PEPTIDES
+    cfg, dm, ds, model = peptides_setup(path, fused)
+    opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                          cfg.optim.lr, cfg.optim.weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step, _ = make_train_step(model, opt, cfg.training.loss_fn,
+                              generator=gen)
+    ids = dm.split_idx["train"]
+    perm = epoch_permutation(len(ids), cfg.data.batch_size, 0)
+    rows = torch.as_tensor(np.where(perm >= 0, ids[np.clip(perm, 0, None)],
+                                    -1).astype(np.int32), device="cuda")
+    profile_steps(f"peptides {'fused' if fused else 'unfused'} GCN", step,
+                  lambda i: assemble(ds, rows[i % len(rows)]))
+
+
+def phase_reference_fused():
+    """The full-width FusedDenseGCN on a 4-graph peptides batch: the card
+    (kernels) against the CPU (plain versions), logits and every parameter
+    gradient."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch
+    from graph_hscn_tpu_torch.train.loss import criterion
+
+    cfg, dm, _, model = peptides_setup(PEPTIDES_FUSED, fused=True)
+    graphs = dm.split("val")[:4]
+    batch = pack_batch(graphs, PadBudget.for_dataset(graphs, 4),
+                       slot_nodes=dm.slot_nodes)
+    model = model.cpu().eval()
+    outs = {}
+    for dev, m in (("cpu", model), ("cuda", copy.deepcopy(model).cuda())):
+        b = batch.to(dev)
+        logits = m(b)
+        loss, _ = criterion(cfg.training.loss_fn, logits, b.y, b.graph_mask)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        outs[dev] = [logits.detach()] + list(grads)
+    worst = 0.0
+    for ref, got in zip(outs["cpu"], outs["cuda"]):
+        err = float((got.cpu() - ref).abs().max())
+        tol = 1e-4 * max(float(ref.abs().max()), 1e-3)
+        if not got.isfinite().all() or err > tol:
+            fail(f"fused card vs CPU: max |err| {err:.3e} > {tol:.3e}")
+        worst = max(worst, err / max(float(ref.abs().max()), 1e-3))
+    print(f"[reference] FusedDenseGCN, 4-graph peptides batch "
+          f"(N={batch.num_nodes_padded}): logits and {len(outs['cpu']) - 1} "
+          f"gradients agree with the CPU, worst relative error {worst:.2e}",
+          flush=True)
+
+
 def main() -> int:
     if not (REPO / "graph_hscn_tpu_torch" / "csrc").is_dir():
         fail(f"{REPO} holds no graph_hscn_tpu_torch package: run the script "
@@ -412,10 +783,17 @@ def main() -> int:
         fail("PyTorch is not installed")
     name, count, smi = phase_device()
     phase_build()
-    kernels = phase_kernels()
+    kernels = phase_kernels() + phase_fused_kernels()
     launches = phase_train()
+    phase_train_peptides(PEPTIDES, fused=False)
+    fused = phase_train_peptides(PEPTIDES_FUSED, fused=True)
+    launches.update(fused_gcn_fwd=fused["fused_gcn_fwd"],
+                    fused_gcn_bwd=fused["fused_gcn_bwd"])
     phase_profile()
+    phase_profile_peptides(fused=False)
+    phase_profile_peptides(fused=True)
     phase_reference()
+    phase_reference_fused()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

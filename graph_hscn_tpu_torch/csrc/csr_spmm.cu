@@ -16,8 +16,11 @@
 //     and no zero-fill launch (a row with no edges writes zeros);
 //   - col[e] and w[e] are the same address across the warp, one broadcast
 //     load each.
-// x is float32 or bfloat16 (read with __bfloat162float); the sum and the
-// output are float32.  Indices are int32.
+// x is float32 or bfloat16; the sum and the output are float32.  For
+// bfloat16 x each term is rounded as the Pallas tile body rounds it
+// (spmm_kernel.py:223,230): the weight to bfloat16 once, then the product
+// bf16(w) * x_j (exact in float32) to bfloat16, summed in float32.  The
+// float32 path is a plain fmaf.  Indices are int32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -26,9 +29,25 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kChunks = 4;  // 4 x 32 features held in registers a pass
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// acc + w * x: float32 for float32 x; for bfloat16 x, w was rounded to
+// bfloat16 by the caller and the product is rounded to bfloat16.
+__device__ __forceinline__ float add_term(float acc, float w, float x) {
+  return fmaf(w, x, acc);
+}
+__device__ __forceinline__ float add_term(float acc, float w,
+                                          __nv_bfloat16 x) {
+  return acc + bf16_round(w * __bfloat162float(x));
+}
+
+template <typename T>
+__device__ __forceinline__ float edge_weight(float w) { return w; }
+template <>
+__device__ __forceinline__ float edge_weight<__nv_bfloat16>(float w) {
+  return bf16_round(w);
 }
 
 template <typename T>
@@ -47,12 +66,12 @@ csr_spmm_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 #pragma unroll
     for (int k = 0; k < kChunks; ++k) acc[k] = 0.0f;
     for (int e = beg; e < end; ++e) {
-      const float we = w[e];
+      const float we = edge_weight<T>(w[e]);
       const T* x_row = x + static_cast<size_t>(col[e]) * f;
 #pragma unroll
       for (int k = 0; k < kChunks; ++k) {
         const int j = f0 + k * 32 + lane;
-        if (j < f) acc[k] = fmaf(we, to_f32(x_row[j]), acc[k]);
+        if (j < f) acc[k] = add_term(acc[k], we, x_row[j]);
       }
     }
 #pragma unroll

@@ -22,7 +22,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from graph_hscn_tpu_torch.data.structures import GraphBatch
+from graph_hscn_tpu_torch.data.structures import DenseGraphBatch, GraphBatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,3 +348,43 @@ def csr_row_pointers(receivers: np.ndarray, num_nodes: int) -> np.ndarray:
     rowptr = np.zeros((num_nodes + 1,), dtype=np.int32)
     np.cumsum(counts, out=rowptr[1:])
     return rowptr
+
+
+def to_dense(batch: GraphBatch, max_nodes: int,
+             weighted: bool = False) -> DenseGraphBatch:
+    """Re-block a numpy GraphBatch into the per-graph dense view (host
+    side).  ``max_nodes`` must be >= the largest per-graph node count in
+    the batch.  The device-side conversion is ``ops/dense.batch_to_dense``.
+    """
+    G = batch.num_graphs_padded - 1  # drop dummy graph
+    F = batch.node_feat.shape[1]
+    x = np.zeros((G, max_nodes, F), dtype=np.float32)
+    adj = np.zeros((G, max_nodes, max_nodes), dtype=np.float32)
+    mask = np.zeros((G, max_nodes), dtype=bool)
+    n_node = np.asarray(batch.n_node[:G])
+    offsets = np.concatenate([[0], np.cumsum(n_node)])
+    nf = np.asarray(batch.node_feat)
+    snd = np.asarray(batch.senders)
+    rcv = np.asarray(batch.receivers)
+    em = np.asarray(batch.edge_mask)
+    ew = (np.asarray(batch.edge_weight) if (weighted and batch.edge_weight
+                                            is not None) else None)
+    ng = np.asarray(batch.node_graph)
+    for gi in range(G):
+        n = int(n_node[gi])
+        off = int(offsets[gi])
+        x[gi, :n] = nf[off:off + n]
+        mask[gi, :n] = True
+    g_of_edge = ng[rcv]
+    for ei in np.nonzero(em)[0]:
+        gi = int(g_of_edge[ei])
+        if gi >= G:
+            continue
+        off = int(offsets[gi])
+        w = float(ew[ei]) if ew is not None else 1.0
+        adj[gi, rcv[ei] - off, snd[ei] - off] += w
+    return DenseGraphBatch(
+        x=x, adj=adj, node_mask=mask, n_node=n_node,
+        graph_mask=np.asarray(batch.graph_mask[:G]),
+        y=None if batch.y is None else np.asarray(batch.y[:G]),
+    )

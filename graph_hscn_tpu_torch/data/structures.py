@@ -58,6 +58,11 @@ class GraphBatch:
       cluster:    [N]     optional cluster assignment (HSCN), or None.
       spmm:       optional :class:`~graph_hscn_tpu_torch.ops.cuda.spmm_kernel.CsrPlan`
                   for the hand SpMM kernel, attached by the batcher.
+      dense_adj:  [G-1, slot, slot] per-graph adjacency counts of a
+                  slotted batch (adj[g, dst_local, src_local]), or None:
+                  the device-resident dataset gathers it from its cache;
+                  otherwise it is built on the device from the edges
+                  (``ops/dense.py``).
       slot:       slot width of the slotted dense layout, or None.
     """
 
@@ -79,7 +84,14 @@ class GraphBatch:
     eigvecs: Array | None = None
     cluster: Array | None = None
     spmm: Any | None = None
+    dense_adj: Array | None = None
     slot: int | None = None
+
+    @property
+    def slot_size(self) -> int | None:
+        if self.slot is not None:
+            return self.slot
+        return None if self.dense_adj is None else self.dense_adj.shape[-1]
 
     @property
     def num_nodes_padded(self) -> int:
@@ -112,3 +124,33 @@ class GraphBatch:
         if self.spmm is not None:
             moved["spmm"] = self.spmm.to(device)
         return dataclasses.replace(self, **moved)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseGraphBatch:
+    """Per-graph dense view: everything is a batched fixed-size block
+    (numpy on the host).  Built from a ``GraphBatch`` by
+    :func:`graph_hscn_tpu_torch.data.batching.to_dense`.
+
+    Attributes:
+      x:         [G, n_max, F]   node features, zero-padded.
+      adj:       [G, n_max, n_max] dense adjacency (weighted if edge_weight).
+      node_mask: [G, n_max]      bool.
+      n_node:    [G]             int32.
+      graph_mask:[G]             bool.
+      y:         [G, C], or None.
+    """
+
+    x: Array
+    adj: Array
+    node_mask: Array
+    n_node: Array
+    graph_mask: Array
+    y: Array | None = None
+
+    @property
+    def max_nodes(self) -> int:
+        return self.x.shape[1]
+
+    def replace(self, **kw) -> "DenseGraphBatch":
+        return dataclasses.replace(self, **kw)

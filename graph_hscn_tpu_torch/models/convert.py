@@ -2,9 +2,10 @@
 
 A flax ``MPNN`` keeps ``{'params': {'GCNConv_i': {'kernel' [in, out],
 'bias' [out]}}}``; the port's ``MPNN`` keeps ``convs.i.weight`` [out, in]
-and ``convs.i.bias``.  With the weights carried across, both packages
-compute the same function, which is how the tests hold one against the
-other.
+and ``convs.i.bias``.  A flax ``FusedDenseGCN`` keeps ``kernel_i`` [in,
+out] and ``bias_i``, and so does the port's.  With the weights carried
+across, both packages compute the same function, which is how the tests
+hold one against the other.
 """
 
 from __future__ import annotations
@@ -32,4 +33,19 @@ def mpnn_params_from_jax(params) -> dict[str, torch.Tensor]:
         if "bias" in leaves:
             state[f"convs.{i}.bias"] = torch.from_numpy(
                 np.asarray(leaves["bias"], dtype=np.float32).copy())
+    return state
+
+
+def fused_gcn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax FusedDenseGCN params (``kernel_i`` [in, out], ``bias_i``; the
+    ``'params'`` tree or the whole variables dict) -> the port
+    FusedDenseGCN's ``state_dict`` (the same names and layout)."""
+    params = params.get("params", params)
+    state = {}
+    for name, leaf in params.items():
+        if re.fullmatch(r"(kernel|bias)_\d+", name) is None:
+            raise ValueError(f"unexpected flax param {name!r} (FusedDenseGCN "
+                             "holds kernel_i and bias_i only)")
+        state[name] = torch.from_numpy(
+            np.asarray(leaf, dtype=np.float32).copy())
     return state

@@ -66,9 +66,10 @@ class GCNConv(nn.Module):
     """PyG GCNConv:  X' = D^-1/2 (A + I) D^-1/2 X W + b.
 
     Self-loops are folded in as a diagonal term (weight 1/(deg_i+1)) rather
-    than materialized edges, which keeps the edge array static.  Sparse
-    branch of the JAX layer (layers.py:80-127); the dense-slot branch is
-    slice 2 of the port.
+    than materialized edges, which keeps the edge array static.  Both
+    branches of the JAX layer (layers.py:62-127): the sparse one through
+    ``gather_scatter``, and for slotted batches the dense one, a batched
+    matmul over per-graph ``[G, S, S]`` adjacencies.
     """
 
     def __init__(self, in_features: int, features: int,
@@ -84,11 +85,39 @@ class GCNConv(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
 
+    @staticmethod
+    def normalize_dense(dense_adj: torch.Tensor, add_self_loops: bool = True,
+                        normalize: bool = True):
+        """The layer-independent normalized adjacency and self-loop
+        diagonal, computed once a forward for the whole stack."""
+        adj = dense_adj
+        deg = adj.sum(-1)
+        if add_self_loops:
+            deg = deg + 1.0
+        inv = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)), 0.0)
+        if normalize:
+            adj = adj * inv[:, :, None] * inv[:, None, :]
+        diag = (inv * inv) if (add_self_loops and normalize) else None
+        return adj, diag
+
     def forward(self, x, senders, receivers, edge_mask, edge_weight=None,
-                num_nodes=None, plan=None):
+                num_nodes=None, plan=None, dense_adj=None, dense_diag=None):
+        """``dense_adj``/``dense_diag``: the slotted branch's adjacency and
+        self-loop diagonal, normalized once a forward by
+        :meth:`normalize_dense` (the JAX layer's dense_pre_normalized)."""
         n = num_nodes or x.shape[0]
         x, w = promote_dtype(x, self.weight, dtype=self.dtype)
         h = F.linear(x, w)
+        if dense_adj is not None:
+            out = self._dense(h, n, dense_adj.to(h.dtype), dense_diag)
+        else:
+            out = self._sparse(h, senders, receivers, edge_mask, edge_weight,
+                               n, plan)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out
+
+    def _sparse(self, h, senders, receivers, edge_mask, edge_weight, n, plan):
         if self.normalize:
             # Weighted degree when edge_weight is given (PyG gcn_norm
             # computes deg from the edge weights, not the edge count).
@@ -104,9 +133,20 @@ class GCNConv(nn.Module):
                              edge_weight=norm_w.to(h.dtype), plan=plan)
         if diag is not None:
             out = out + diag.to(h.dtype)[:, None] * h
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
         return out
+
+    def _dense(self, h, n, adj, diag):
+        """Slotted dense branch: ``adj @ h`` a graph block, plus the
+        self-loop diagonal; rows past the blocks are padding (zeros)."""
+        if diag is not None:
+            diag = diag.to(h.dtype)
+        G, S = adj.shape[0], adj.shape[-1]
+        hb = h.reshape(-1, S, h.shape[-1])[:G]
+        outb = torch.bmm(adj, hb)
+        if diag is not None:
+            outb = outb + diag[:, :, None] * hb
+        out = outb.reshape(-1, h.shape[-1])
+        return F.pad(out, (0, 0, 0, n - out.shape[0]))
 
 
 ACTIVATIONS: dict[str, Callable] = {

@@ -1,5 +1,7 @@
 """MPNN baselines: the counterpart of ``graph_hscn_tpu/models/mpnn.py`` (the
-reference's MPNN, mpnn.py:13-76), GCN stacks so far.
+reference's MPNN, mpnn.py:13-76), GCN stacks so far: sparse batches
+through ``gather_scatter``, slotted batches through per-graph dense
+adjacencies.
 
 Structure per the reference:
   layer 0:   conv(F -> H)
@@ -53,13 +55,19 @@ class MPNN(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits [N, C] (readout "none") or [G, C], float32.  Dropout is
         on in training mode and draws its bits from ``generator``."""
-        resolve_dense_adj(batch)
         x = batch.node_feat
         n = batch.num_nodes_padded
+        extra = {"plan": batch.spmm}
+        dense_adj = resolve_dense_adj(batch)
+        if dense_adj is not None:
+            # Slotted dense path: normalize the adjacency ONCE for the whole
+            # stack (it is layer-independent).
+            adj_n, diag_n = GCNConv.normalize_dense(dense_adj)
+            extra = {"dense_adj": adj_n, "dense_diag": diag_n}
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
             x = conv(x, batch.senders, batch.receivers, batch.edge_mask,
-                     num_nodes=n, plan=batch.spmm)
+                     num_nodes=n, **extra)
             if i < last:
                 if self.compat_double_relu:
                     x = torch.relu(x)

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so``
 under the project root, then loaded with ``ctypes``.  The hash covers the
-source and the flags, so an edited kernel is rebuilt and an unchanged one is
-loaded from the previous build.  Nothing is built when a module is imported:
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel is rebuilt and an unchanged one is loaded from the previous build.  Nothing is built when a module is imported:
 the first launch builds what it needs, and :func:`build_all` builds every
 kernel at once, one ``nvcc`` process per source, all started together.
 """
@@ -29,6 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_U32 = ctypes.c_uint32
+_PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
+_IP = ctypes.POINTER(ctypes.c_int)      # a host array of ints
 # The C signature of each kernel's entry point: (argument types); every
 # entry point returns cudaGetLastError() as an int.
 SIGNATURES = {
@@ -37,6 +41,14 @@ SIGNATURES = {
     # row, col, h_src, src_bf16, h_dst, dst_bf16, out, n_edges, n_real, f,
     # stream
     "edge_sddmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
+    # a_hat, x, bf16, w[], b[], bits[], out[], dims[], num_layers, graphs,
+    # slot, mode, thr, scale, seed, stream
+    "fused_gcn_fwd": (_P, _P, _I, _PP, _PP, _PP, _PP, _IP, _I, _I, _I, _I,
+                      _U32, _F, _P, _P),
+    # a_hat, x, bf16, w[], act[], g, dx, partial, grads, dims[], num_layers,
+    # graphs, slot, keep_scale, stream
+    "fused_gcn_bwd": (_P, _P, _I, _PP, _PP, _P, _P, _P, _P, _IP, _I, _I, _I,
+                      _F, _P),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -62,9 +74,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -99,13 +99,20 @@ def csr_spmm_plain(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
     """:func:`csr_spmm` in plain PyTorch (``index_select`` + ``index_add_``
     in float32): the CPU path, and the reference the kernel is held to.
 
+    For bfloat16 x each message is ``bf16(bf16(w) * x_j)``, as the Pallas
+    tile body rounds it (spmm_kernel.py:223,230); the sum is float32.
     Edge slots past row_ptr[N] (the padding) are summed into a spare row
     that is dropped, so the function never reads a count back to the host.
     """
     n = row_ptr.numel() - 1
     slots = torch.arange(col.numel(), device=x.device, dtype=row_ptr.dtype)
     rows = torch.searchsorted(row_ptr, slots, right=True) - 1
-    msgs = x.index_select(0, col.long()).float() * w[:, None].float()
+    w = w.float()
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    msgs = x.index_select(0, col.long()).float() * w[:, None]
+    if x.dtype == torch.bfloat16:
+        msgs = msgs.to(torch.bfloat16).float()
     out = torch.zeros(n + 1, x.shape[1], dtype=torch.float32,
                       device=x.device)
     return out.index_add_(0, rows, msgs)[:n]

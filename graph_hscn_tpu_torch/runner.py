@@ -1,10 +1,12 @@
 """Experiment runner: config -> data -> model -> training.
 
 The counterpart of ``graph_hscn_tpu/runner.py`` (the reference's
-run_train, main.py:85-120), single-device MPNN path.  Execution paths are
-routed as in the JAX package (runner.py:49-61 and :120-238); the paths of
-later slices raise ``NotImplementedError`` naming their ROADMAP item, so no
-config falls through to a path it did not ask for.
+run_train, main.py:85-120), single-device MPNN path: the GCN ``MPNN`` or the
+fused ``FusedDenseGCN``, trained by the host loop ``fit`` or the
+device-resident ``fit_device``.  Execution paths are routed as in the JAX
+package (runner.py:49-61, :120-138 and :212-238); the paths of later slices
+raise ``NotImplementedError`` naming their ROADMAP item, so no config falls
+through to a path it did not ask for.
 
 Runs on ``cuda`` unless the caller passes another device; without a card
 that raises.
@@ -18,10 +20,11 @@ import torch
 from graph_hscn_tpu_torch.config import defaults as D
 from graph_hscn_tpu_torch.config.config import ExperimentConfig
 from graph_hscn_tpu_torch.data.pipeline import DataModule
+from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
 from graph_hscn_tpu_torch.models.layers import resolve_dtype
 from graph_hscn_tpu_torch.models.mpnn import build_mpnn
 from graph_hscn_tpu_torch.ops import spmm as spmm_mod
-from graph_hscn_tpu_torch.train.loop import FitResult, fit
+from graph_hscn_tpu_torch.train.loop import FitResult, fit, fit_device
 from graph_hscn_tpu_torch.utils.logger import Logger
 
 
@@ -97,26 +100,40 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
     if cfg.hscn is not None:
         raise NotImplementedError("HSCN pipeline: ROADMAP slice 3 "
                                   "(queue A, item 7)")
+    # Initial weights from a seeded generator on the host, then moved.
+    init_gen = torch.Generator().manual_seed(cfg.training.seed)
+    readout = "none" if node_level else "mean"
     if _use_fused_stack(cfg, dm, device):
-        raise NotImplementedError("fused GCN stack (kernel B2): ROADMAP "
-                                  "slice 2 (queue A, item 6)")
+        logger.info("Fused GCN stack on"
+                    + (f" ({cfg.runtime.compute_dtype} compute, f32 "
+                       "accumulation/logits)."
+                       if compute_dtype is not None else "."))
+        model = FusedDenseGCN(
+            num_features=dm.num_features,
+            hidden_channels=cfg.mpnn.hidden_channels,
+            num_classes=dm.num_classes, num_layers=cfg.mpnn.num_layers,
+            dropout=cfg.mpnn.dropout, readout=readout, dtype=compute_dtype,
+            generator=init_gen)
+    else:
+        model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
+                           compat=cfg.compat.double_relu, readout=readout,
+                           dtype=compute_dtype, generator=init_gen)
+        if compute_dtype is not None:
+            logger.info(f"Mixed precision: {cfg.runtime.compute_dtype} "
+                        "compute, f32 params/logits.")
+    model = model.to(device)
     if mesh_size > 1 or cfg.mesh.edge_partition:
         raise NotImplementedError("mesh.shape > 1 / mesh.edge_partition: "
                                   "ROADMAP queue A, item 11")
     if _use_device_dataset(cfg, dm):
-        raise NotImplementedError("device-resident dataset "
-                                  "(train/device_data.py): ROADMAP slice 2 "
-                                  "(queue A, item 10)")
-
-    # Initial weights from a seeded generator on the host, then moved.
-    init_gen = torch.Generator().manual_seed(cfg.training.seed)
-    model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                       compat=cfg.compat.double_relu,
-                       readout="none" if node_level else "mean",
-                       dtype=compute_dtype, generator=init_gen).to(device)
-    if compute_dtype is not None:
-        logger.info(f"Mixed precision: {cfg.runtime.compute_dtype} "
-                    "compute, f32 params/logits.")
+        logger.info("Device-resident dataset path on.")
+        return fit_device(
+            model, dm.split("train"), dm.split("val"), dm.split("test"),
+            batch_size=cfg.data.batch_size, optim_cfg=cfg.optim,
+            training_cfg=cfg.training, logger=logger, device=device,
+            node_level=node_level,
+            compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+            slot=dm.slot_nodes, step_timing=step_timing)
     return fit(
         model,
         # Fresh batch composition every epoch (reference DataLoader

@@ -1,5 +1,6 @@
-"""Training + evaluation loops: the counterpart of the host path of
-``graph_hscn_tpu/train/loop.py`` (the reference's train/train.py:54-214).
+"""Training + evaluation loops: the counterpart of
+``graph_hscn_tpu/train/loop.py`` (the reference's train/train.py:54-214):
+the host path ``fit`` and the device-resident path ``fit_device``.
 
 - a train step is ``model.train()``, forward, ``criterion``, ``backward``,
   optimizer step; an eval step runs the forward under ``torch.no_grad()``;
@@ -21,6 +22,8 @@ import numpy as np
 import torch
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
+from graph_hscn_tpu_torch.train.device_data import (DeviceDataset, assemble,
+                                                    epoch_permutation)
 from graph_hscn_tpu_torch.train.loss import criterion
 from graph_hscn_tpu_torch.train.metrics import METRICS
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
@@ -143,46 +146,143 @@ def fit(model: torch.nn.Module,
     train step in a device sync and records its wall time.
     """
     device = torch.device(device)
+    train_step, eval_step, runner = _setup(
+        model, optim_cfg, training_cfg, device, node_level,
+        compat_sigmoid_score, step_timing)
+    eval_sets = {"val": val_batches, "test": test_batches}
+
+    def move(batch: GraphBatch) -> GraphBatch:
+        return batch.to(device)
+
+    best, history, stopped, epochs_run = run_fit_loop(
+        training_cfg, logger,
+        lambda epoch: runner.run(train_batches_fn(epoch), move, train_step,
+                                 "train"),
+        lambda split: runner.run(eval_sets[split], move, eval_step, "eval"))
+    return runner.result(model, best, history, stopped, epochs_run)
+
+
+def _setup(model, optim_cfg, training_cfg, device: torch.device,
+           node_level: bool, compat_sigmoid_score: bool, step_timing: bool):
+    """The optimizer, the train and eval steps, and the epoch runner of a
+    fit.  Dropout draws its bits from one generator on the device, seeded
+    with ``training.seed`` and advanced step by step (the counterpart of
+    the JAX ``fold_in(state.rng, state.step)``)."""
     opt = build_optimizer(model.parameters(), optim_cfg.optim_type,
                           optim_cfg.lr, optim_cfg.weight_decay,
                           optim_cfg.batch_accumulation,
                           optim_cfg.clip_grad_norm,
                           schedule=optim_cfg.schedule,
                           warmup_steps=optim_cfg.warmup_steps)
-    metric_fn = METRICS[training_cfg.metric]
-    # Dropout bits: one generator on the device, seeded from the config.
     dropout_gen = torch.Generator(device=device)
     dropout_gen.manual_seed(training_cfg.seed)
     train_step, eval_step = make_train_step(
         model, opt, training_cfg.loss_fn, node_level=node_level,
         compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen)
-    counts = {"train": 0, "eval": 0}
-    step_seconds: list[float] = []
+    runner = _StepRunner(METRICS[training_cfg.metric], device, step_timing)
+    return train_step, eval_step, runner
 
-    def run(batches, step, kind):
+
+class _StepRunner:
+    """Runs an epoch's steps, counts them, times the train steps when asked
+    (each then ends in a device sync; the time covers making the step's
+    batch on the device and the step), and turns the epoch's outputs into
+    (mean loss, metric) with one readback."""
+
+    def __init__(self, metric_fn, device: torch.device, step_timing: bool):
+        self.metric_fn = metric_fn
+        self.device = device
+        self.step_timing = step_timing
+        self.counts = {"train": 0, "eval": 0}
+        self.step_seconds: list[float] = []
+
+    def run(self, items: Iterable, prepare: Callable, step, kind: str):
+        """``prepare(item)`` makes the step's batch on the device."""
         outs = []
-        for batch in batches:
+        for item in items:
             t0 = time.perf_counter()
-            outs.append(step(batch.to(device)))
-            counts[kind] += 1
-            if step_timing and kind == "train":
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                step_seconds.append(time.perf_counter() - t0)
+            outs.append(step(prepare(item)))
+            self.counts[kind] += 1
+            if self.step_timing and kind == "train":
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.step_seconds.append(time.perf_counter() - t0)
         losses, scores, trues, masks = zip(*outs)
         y_pred = torch.cat(scores).cpu().numpy()
         y_true = torch.cat(trues).cpu().numpy()
         m = torch.cat(masks).cpu().numpy()
         loss = float(np.mean(torch.stack(losses).cpu().numpy()))
-        return loss, metric_fn(y_true[m], y_pred[m])
+        return loss, self.metric_fn(y_true[m], y_pred[m])
 
-    eval_sets = {"val": val_batches, "test": test_batches}
+    def result(self, model, best, history, stopped, epochs_run) -> FitResult:
+        return FitResult(model=model, best_val_loss=best, history=history,
+                         stopped_early=stopped, epochs_run=epochs_run,
+                         num_train_steps=self.counts["train"],
+                         num_eval_batches=self.counts["eval"],
+                         step_seconds=self.step_seconds)
+
+
+def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
+               batch_size: int, optim_cfg, training_cfg, logger,
+               device: torch.device | str, node_level: bool = False,
+               compat_sigmoid_score: bool = False, slot: int | None = None,
+               step_timing: bool = False) -> FitResult:
+    """Device-resident training (the JAX ``fit_device``): the whole dataset
+    lives on ``device``, batches are assembled there from index rows
+    (train/device_data.py), and an epoch's host traffic is its [NB, B]
+    permutation plus the metric readback.  Same eval cadence and early
+    stopping as :func:`fit`."""
+    splits = {"train": list(graphs_train), "val": list(graphs_val),
+              "test": list(graphs_test)}
+    all_graphs = splits["train"] + splits["val"] + splits["test"]
+    ds = DeviceDataset.build(all_graphs, slot=slot, device=device)
+    n_tr, n_va = len(splits["train"]), len(splits["val"])
+    split_ids = {
+        "train": np.arange(n_tr),
+        "val": np.arange(n_tr, n_tr + n_va),
+        "test": np.arange(n_tr + n_va, len(all_graphs)),
+    }
+    return fit_on_device_dataset(
+        model, ds, split_ids, batch_size, optim_cfg, training_cfg, logger,
+        device, node_level=node_level,
+        compat_sigmoid_score=compat_sigmoid_score, step_timing=step_timing)
+
+
+def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
+                          batch_size: int, optim_cfg, training_cfg, logger,
+                          device: torch.device | str,
+                          node_level: bool = False,
+                          compat_sigmoid_score: bool = False,
+                          step_timing: bool = False) -> FitResult:
+    """:func:`fit_device` on a prebuilt DeviceDataset.
+
+    The JAX package runs each epoch as one ``lax.scan`` over the
+    permutation's rows; here it is a Python loop over the rows of the
+    permutation, copied to the device once an epoch.
+    """
+    device = torch.device(device)
+    counts = {k: len(v) for k, v in split_ids.items()}
+    train_step, eval_step, runner = _setup(
+        model, optim_cfg, training_cfg, device, node_level,
+        compat_sigmoid_score, step_timing)
+
+    def split_perm(name, seed, shuffle) -> torch.Tensor:
+        p = epoch_permutation(counts[name], batch_size, seed, shuffle)
+        ids = np.asarray(split_ids[name])
+        p = np.where(p >= 0, ids[np.clip(p, 0, None)], -1).astype(np.int32)
+        return torch.from_numpy(p).to(device)
+
+    eval_perms = {"val": split_perm("val", 0, False),
+                  "test": split_perm("test", 0, False)}
+
+    def gather(row: torch.Tensor) -> GraphBatch:
+        return assemble(ds, row)
+
     best, history, stopped, epochs_run = run_fit_loop(
         training_cfg, logger,
-        lambda epoch: run(train_batches_fn(epoch), train_step, "train"),
-        lambda split: run(eval_sets[split], eval_step, "eval"))
-    return FitResult(model=model, best_val_loss=best, history=history,
-                     stopped_early=stopped, epochs_run=epochs_run,
-                     num_train_steps=counts["train"],
-                     num_eval_batches=counts["eval"],
-                     step_seconds=step_seconds)
+        lambda epoch: runner.run(
+            split_perm("train", training_cfg.seed + epoch, True), gather,
+            train_step, "train"),
+        lambda split: runner.run(eval_perms[split], gather, eval_step,
+                                 "eval"))
+    return runner.result(model, best, history, stopped, epochs_run)

@@ -6,8 +6,10 @@ torch's own optimizers, with the same rules:
 - AdamW decays weights decoupled from the gradient, every parameter
   (biases included), as optax.adamw does.
 - Adam's ``weight_decay`` is L2 added to the gradient before the moments.
-- Adagrad starts its accumulator at 0 and uses eps 1e-10; L2 decay is added
-  to the gradient like Adam's.
+- Adagrad is optax's ``scale_by_rss(initial_accumulator_value=0,
+  eps=1e-10)`` (:class:`RssAdagrad`): L2 decay added to the gradient, then
+  ``g * where(acc > 0, rsqrt(acc + eps), 0)``.  torch's own Adagrad takes
+  ``g / (sqrt(acc) + eps)``, which steps near-zero gradients differently.
 - Clipping is a global norm of 1.0, applied before the update
   (optax.clip_by_global_norm).
 """
@@ -31,6 +33,36 @@ def clip_grad_norm(params: Iterable[torch.nn.Parameter],
     for g in grads:
         g.mul_(scale)
     return norm
+
+
+class RssAdagrad(torch.optim.Optimizer):
+    """Adagrad with optax's ``scale_by_rss`` rule, chained as the JAX
+    package chains it (optimizers.py:74-79): ``g += weight_decay * p``,
+    ``acc += g**2``, ``p -= lr * g * where(acc > 0, rsqrt(acc + eps), 0)``.
+    The accumulator starts at 0."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 eps: float = 1e-10):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.zeros_like(p)
+                acc = state["sum_of_squares"]
+                acc.add_(g * g)
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
+                                    0.0)
+                p.sub_(group["lr"] * (g * scale))
 
 
 class Optimizer:
@@ -72,8 +104,8 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], optim_type: str,
         opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                weight_decay=weight_decay)
     elif t == "adagrad":
-        opt = torch.optim.Adagrad(params, lr=lr, weight_decay=weight_decay,
-                                  initial_accumulator_value=0.0, eps=1e-10)
+        opt = RssAdagrad(params, lr=lr, weight_decay=weight_decay,
+                         eps=1e-10)
     else:
         raise ValueError(f"Unknown optimizer {optim_type}")
     return Optimizer(opt, clip_grad_norm)

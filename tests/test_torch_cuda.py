@@ -7,6 +7,12 @@ no conftest):
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_cuda.py
 
 Tolerance: float32 sums in another order, rtol=1e-5, atol=1e-5*max|ref|.
+The fused GCN stack in bfloat16 is held at rtol=1e-4, atol=1e-4*max|ref|:
+kernel and plain version round the same float32 values to bfloat16 at the
+same points (products of bfloat16 values are exact in float32, so most sums
+agree bit for bit), while a kernel that leaves out one rounding point (y,
+dz, dy or the stored hidden outputs) fails it (tests/test_torch_fused_gcn.py,
+test_bf16_tolerance_catches_a_missing_rounding_point).
 """
 
 import numpy as np
@@ -19,6 +25,14 @@ from graph_hscn_tpu_torch.ops import spmm
 from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import (edge_sddmm,
                                                         edge_sddmm_plain)
 from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm, csr_spmm_plain
+from graph_hscn_tpu_torch.ops.fused_gcn import (dropout_bits_plain,
+                                                dropout_threshold,
+                                                folded_operator,
+                                                fused_gcn_bwd,
+                                                fused_gcn_bwd_plain,
+                                                fused_gcn_fwd,
+                                                fused_gcn_fwd_plain,
+                                                fused_gcn_stack)
 
 pytestmark = pytest.mark.gpu
 
@@ -28,10 +42,10 @@ def need_card():
         pytest.skip("no CUDA card")
 
 
-def assert_close(got, ref):
+def assert_close(got, ref, tol=1e-5):
     ref = ref.detach().float().cpu()
-    torch.testing.assert_close(got.detach().float().cpu(), ref, rtol=1e-5,
-                               atol=1e-5 * max(float(ref.abs().max()), 1e-6))
+    torch.testing.assert_close(got.detach().float().cpu(), ref, rtol=tol,
+                               atol=tol * max(float(ref.abs().max()), 1e-6))
 
 
 @pytest.fixture(scope="module")
@@ -150,3 +164,153 @@ def test_run_experiment_on_the_card_launches_the_kernel():
     assert np.isfinite(result.history[0]["train_loss"])
     assert csr_spmm.launches - before == (2 * 2 * result.num_train_steps
                                           + 2 * result.num_eval_batches)
+
+
+DIMS = (9, 16, 16, 10)        # peptides-func: F0 9, hidden 16, 10 classes
+
+
+def fused_inputs(dtype, graphs=8, slot=392, seed=0):
+    """A_hat of random symmetric graphs (~2 edges a node), x, weights and
+    biases at the peptides widths, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    adj = (torch.rand(graphs, slot, slot, generator=gen) < 2.0 / slot)
+    adj = (adj | adj.transpose(1, 2)).float()
+    a_hat = folded_operator(adj).to(dtype).cuda()
+    x = torch.randn(graphs, slot, DIMS[0], generator=gen).to(dtype).cuda()
+    ws = [(0.4 * torch.randn(DIMS[i], DIMS[i + 1], generator=gen))
+          .to(dtype).cuda() for i in range(len(DIMS) - 1)]
+    bs = [(0.1 * torch.randn(DIMS[i + 1], generator=gen)).cuda()
+          for i in range(len(DIMS) - 1)]
+    return a_hat, x, ws, bs
+
+
+def dropout_spec(kind, graphs, slot):
+    if kind == "none":
+        return 0.0, None
+    if kind == "seed":
+        return 0.2, {"seed": 1234567}
+    gen = torch.Generator().manual_seed(9)
+    return 0.2, {"bits": [
+        torch.randint(-2 ** 31, 2 ** 31, (graphs, slot, f), generator=gen,
+                      dtype=torch.int32).cuda() for f in DIMS[1:-1]]}
+
+
+@pytest.mark.parametrize("kind", ["none", "bits", "seed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_gcn_fwd_matches_plain(dtype, kind):
+    need_card()
+    a_hat, x, ws, bs = fused_inputs(dtype)
+    rate, dropout = dropout_spec(kind, x.shape[0], x.shape[1])
+    before = fused_gcn_fwd.launches
+    outs = fused_gcn_fwd(a_hat, x, ws, bs, rate, dropout)
+    torch.cuda.synchronize()
+    assert fused_gcn_fwd.launches == before + 1
+    refs = fused_gcn_fwd_plain(a_hat, x, ws, bs, rate, dropout)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    for l, (got, ref) in enumerate(zip(outs, refs)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert_close(got, ref, tol)
+        if kind == "seed" and l < len(outs) - 1:
+            # Philox bits match the plain version's: every element they
+            # drop is exactly 0 in the kernel's output.
+            bits = dropout_bits_plain(1234567, *got.shape, l, "cuda")
+            dropped = bits < dropout_threshold(rate)
+            assert 0.15 < dropped.float().mean() < 0.25
+            assert not got[dropped].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_gcn_bwd_matches_plain(dtype, rate):
+    need_card()
+    a_hat, x, ws, bs = fused_inputs(dtype, seed=1)
+    dropout = {"seed": 77} if rate else None
+    acts = fused_gcn_fwd_plain(a_hat, x, ws, bs, rate, dropout)[:-1]
+    g = torch.randn(*x.shape[:2], DIMS[-1], device="cuda")
+    before = fused_gcn_bwd.launches
+    dx, dws, dbs = fused_gcn_bwd(a_hat, x, ws, acts, g, rate)
+    torch.cuda.synchronize()
+    assert fused_gcn_bwd.launches == before + 1
+    rdx, rdws, rdbs = fused_gcn_bwd_plain(a_hat, x, ws, acts, g, rate)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    assert dx.dtype == dtype
+    assert_close(dx, rdx, tol)
+    for got, ref in zip(dws + dbs, rdws + rdbs):
+        assert got.dtype == torch.float32
+        assert_close(got, ref, tol)
+    # Deterministic: partials a graph block, summed in a fixed order.
+    again = fused_gcn_bwd(a_hat, x, ws, acts, g, rate)
+    for a, b in zip([dx] + dws + dbs, [again[0]] + again[1] + again[2]):
+        assert torch.equal(a, b)
+
+
+def test_fused_gcn_stack_grads_match_cpu():
+    """The autograd Function on the card (kernels) against the CPU (plain
+    versions), forward and every gradient, with external dropout bits."""
+    need_card()
+    rng = np.random.default_rng(4)
+    G, S = 4, 64
+    x0 = torch.tensor(rng.normal(size=(G, S, DIMS[0])).astype(np.float32))
+    adj = torch.tensor((rng.random((G, S, S)) < 0.05).astype(np.float32))
+    params0 = [(torch.tensor(0.3 * rng.normal(size=(DIMS[i], DIMS[i + 1])),
+                             dtype=torch.float32),
+                torch.tensor(0.1 * rng.normal(size=DIMS[i + 1]),
+                             dtype=torch.float32))
+               for i in range(3)]
+    bits = [torch.tensor(rng.integers(-2 ** 31, 2 ** 31, (G, S, f)),
+                         dtype=torch.int32) for f in DIMS[1:-1]]
+    g = torch.tensor(rng.normal(size=(G, S, DIMS[-1])).astype(np.float32))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        x = x0.to(dev, copy=True).requires_grad_()
+        params = [{"kernel": k.to(dev, copy=True).requires_grad_(),
+                   "bias": b.to(dev, copy=True).requires_grad_()}
+                  for k, b in params0]
+        out = fused_gcn_stack(x, adj.to(dev), params,
+                              {"bits": [b.to(dev) for b in bits]}, 0.3)
+        out.backward(g.to(dev))
+        res[dev] = [out, x.grad] + [t.grad for p in params
+                                    for t in p.values()]
+    for got, ref in zip(res["cuda"], res["cpu"]):
+        assert_close(got, ref)
+
+
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take():
+    need_card()
+    a_hat, x, ws, bs = fused_inputs(torch.float32, graphs=2, slot=16)
+    with pytest.raises(TypeError):
+        fused_gcn_fwd(a_hat, x.to(torch.bfloat16), ws, bs)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_gcn_fwd(a_hat[:, :14, :14].contiguous(),
+                      x[:, :14].contiguous(), ws, bs)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gcn_fwd(a_hat.transpose(1, 2), x, ws, bs)
+    with pytest.raises(ValueError, match="bit arrays"):
+        fused_gcn_fwd(a_hat, x, ws, bs, 0.2, {"bits": []})
+    with pytest.raises(TypeError, match="int32"):
+        fused_gcn_fwd(a_hat, x, ws, bs, 0.2, {"bits": [
+            torch.zeros(2, 16, 16, device="cuda")] * 2})
+
+
+@pytest.mark.parametrize("config,fused", [
+    ("peptides_func_GCN_fused.yaml", True),
+    ("peptides_func_GCN.yaml", False)])
+def test_run_experiment_peptides_on_the_card(config, fused):
+    """Both peptides configs train on the device-resident dataset; the
+    fused one launches fused_gcn_fwd once a train step and an eval batch,
+    fused_gcn_bwd once a train step; the unfused one neither."""
+    need_card()
+    from pathlib import Path
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.runner import run_experiment
+    cfg = load_config(Path(__file__).parents[1] / "configs" / "GCN" / config)
+    cfg.data.num_graphs = 96
+    cfg.training.epochs = 1
+    f0, b0 = fused_gcn_fwd.launches, fused_gcn_bwd.launches
+    result = run_experiment(cfg)
+    assert np.isfinite(result.history[0]["train_loss"])
+    steps, evals = result.num_train_steps, result.num_eval_batches
+    assert steps > 0 and evals > 0
+    assert fused_gcn_fwd.launches - f0 == (steps + evals if fused else 0)
+    assert fused_gcn_bwd.launches - b0 == (steps if fused else 0)

@@ -107,10 +107,11 @@ def test_gather_scatter_matches_pallas(batches, pallas_backends, weighted,
 
 
 def test_gather_scatter_bf16_matches_pallas(batches, pallas_backends):
-    """bf16 operands: both return f32 and dx in bf16.  The Pallas kernel
-    rounds each weighted message to bf16 before its scatter matmul
-    (spmm_kernel.py:230) where the port sums the messages in f32, so both
-    directions are held at bf16's resolution (2**-8 relative)."""
+    """bf16 operands: both return f32 and dx in bf16.  Both round each
+    term as the Pallas tile body does (spmm_kernel.py:223,230): the weight
+    to bf16, then the message bf16(w) * x_j to bf16, summed in f32; so the
+    forward agrees to f32 summation order (atol 1e-5*max|ref|).  dx is a
+    float32 sum rounded to bf16 on both sides, held at the same level."""
     jb, tb = batches
     n, e = tb.num_nodes_padded, tb.num_edges_padded
     rng = np.random.default_rng(3)
@@ -133,8 +134,25 @@ def test_gather_scatter_bf16_matches_pallas(batches, pallas_backends):
     for got, want in ((out.detach(), ref), (xt.grad.float(), ref_dx)):
         want = np.asarray(want, np.float32)
         np.testing.assert_allclose(
-            got.numpy(), want, rtol=1e-2,
-            atol=1e-2 * float(np.abs(want).max()))
+            got.numpy(), want, rtol=1e-5,
+            atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_csr_spmm_plain_rounds_bf16_terms():
+    """The plain version's bf16 terms: bf16(bf16(w) * x) summed in f32;
+    its float32 path sums w * x unrounded."""
+    x = torch.tensor([[1.0 + 2 ** -7], [3.0]])
+    w = torch.tensor([1.0 + 2 ** -9, 1.0 / 3.0])
+    row_ptr = torch.tensor([0, 2, 2], dtype=torch.int32)
+    col = torch.tensor([0, 1], dtype=torch.int32)
+    bf = torch.bfloat16
+    want = sum(float((w[i].to(bf).float() * x[i].to(bf).float()).to(bf))
+               for i in range(2))
+    out = csr_spmm_plain(x.to(bf), row_ptr, col, w)
+    assert out[0, 0].item() == np.float32(want) and out[1, 0] == 0
+    exact = float(w[0] * x[0, 0]) + float(w[1] * x[1, 0])
+    f32 = csr_spmm_plain(x, row_ptr, col, w)
+    np.testing.assert_allclose(f32[0, 0].item(), exact, rtol=1e-7)
 
 
 @pytest.mark.parametrize("backend", ["xla", "auto"])

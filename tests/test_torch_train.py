@@ -45,14 +45,14 @@ def restore_backend():
 
 @pytest.mark.parametrize("optim_type,clip", [("adamW", False),
                                              ("adamW", True),
-                                             ("adam", False)])
+                                             ("adam", False),
+                                             ("adagrad", False)])
 def test_optimizer_steps_follow_jax(optim_type, clip, restore_backend):
     """3 steps with dropout 0 from carried-over weights: the loss of every
     step and the final params within 1e-5 relative of the JAX train step
     (train/loop.py:73-113).  The port runs its kernel path (plain versions
-    on the CPU), JAX its XLA path: the same function.  Adagrad is left out:
-    torch's divides by sqrt(acc) + eps and optax's by sqrt(acc + eps), so
-    near-zero gradients step differently (ROADMAP queue C)."""
+    on the CPU), JAX its XLA path: the same function.  Adagrad follows
+    optax's scale_by_rss rule (rsqrt(acc + eps), 0 where acc is 0)."""
     graphs = js.make_voc_superpixels(num_graphs=6, seed=41, mean_nodes=100.0)
     budget = jb.PadBudget.for_dataset(graphs, batch_size=2)
     jbatches = [jb.pack_batch(graphs[i:i + 2], budget) for i in (0, 2, 4)]
@@ -168,10 +168,9 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("path,change,match", [
-    ("GCN/voc_superpixels_GCN.yaml", {}, "device-resident dataset"),
-    ("GCN/peptides_func_GCN.yaml", {}, "device-resident dataset"),
-    ("GCN/peptides_func_GCN.yaml", {"runtime.fused_stack": "on"},
-     "fused GCN stack"),
+    ("GIN/peptides_func_GIN.yaml", {}, "conv_type"),
+    ("GatedGCN/peptides_struct_GatedGCN.yaml", {}, "conv_type"),
+    ("GCN/peptides_func_GCN_dp8.yaml", {}, "mesh"),
     ("GCN/peptides_func_GCN_PE.yaml", {}, "positional encodings"),
     ("HSCN/peptides_func_HSCN.yaml", {}, "HSCN"),
     ("GCN/voc_superpixels_GCN_sparse.yaml", {"mesh.shape": [2]}, "mesh"),
