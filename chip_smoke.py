@@ -8,30 +8,42 @@ Phases; any failure exits non-zero:
                Without a CUDA card the script stops here: no CPU fallback.
   2. build   - nvcc builds every kernel from graph_hscn_tpu_torch/csrc/, one
                process per source, all at once; prints seconds and ptxas -v.
-  3. kernels - each sparse kernel at the VOC path's shapes (a real
-               VOC-superpixels sparse batch, N=9784 nodes, F=64 and 21,
-               float32 and bfloat16 inputs) against its plain PyTorch
-               version; CUDA-event times of kernel, plain version and one
-               library call, beside the bound.  Then the fused GCN stack's
-               forward and backward kernels at the peptides batch (G=32
-               graphs, slot 392, 9 -> 16 -> 16 -> 10, float32 and bfloat16,
-               no dropout, given bits and the seeded Philox stream) against
-               their plain versions, beside the bound and the unfused dense
-               stack (the MPNN's torch.bmm route) as a yardstick.  Device
-               times: CUDA events over calls queued behind a device sleep
-               (at most 256 launches queued), or for a call of more
+  3. kernels - each kernel against its plain PyTorch version at its path's
+               shapes, with CUDA-event times of kernel and plain version, a
+               library call or yardstick, and the bound:
+               - csr_spmm and edge_sddmm at a VOC-superpixels sparse GCN
+                 batch (N=9784, F=64 and 21, float32 and bfloat16);
+               - fused_gcn_fwd/bwd at the peptides batch (G=32 graphs, slot
+                 392, 9 -> 16 -> 16 -> 10, float32 and bfloat16, no dropout,
+                 given bits and the seeded Philox stream), beside the
+                 unfused dense stack (torch.bmm) as a yardstick;
+               - spmm_mh and sddmm_mh at the VOC GAT batch (N=19048, 72832
+                 edge slots): spmm_mh forward and transpose at H*C = 64, 84
+                 and 8, sddmm_mh at C = 16 (float32, bfloat16, bfloat16 with
+                 float32), 21 and 2, and gat_edge_logits; the library
+                 call is one torch.sparse.mm / sampled_addmm on the
+                 block-diagonal [H*N, H*N] CSR, checked against the plain
+                 version too.
+               Device times: CUDA events over calls queued behind a device
+               sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
-  4. train   - run_experiment on configs/GCN/voc_superpixels_GCN_sparse.yaml,
-               configs/GCN/peptides_func_GCN.yaml and
-               configs/GCN/peptides_func_GCN_fused.yaml at their full width
-               for 2 epochs each: finite losses, and each run's kernel launch
-               counts from that run alone (VOC: 8 csr_spmm launches a train
-               step and 4 an eval batch; fused peptides: one fused_gcn_fwd a
-               train step and an eval batch, one fused_gcn_bwd a train step;
-               unfused peptides: none); a torch.profiler window over steady
-               train steps of each (device busy time, idle share, kernels by
-               time); then each full-width model on a 4-graph batch, on the
-               card and on the CPU: logits and gradients agree.
+  4. train   - run_experiment at full width for 2 epochs each on
+               configs/GCN/voc_superpixels_GCN_sparse.yaml,
+               configs/GCN/peptides_func_GCN.yaml,
+               configs/GCN/peptides_func_GCN_fused.yaml,
+               configs/GAT/voc_superpixels_GAT_sparse.yaml and
+               configs/GAT/peptides_func_GAT.yaml: finite losses, and every
+               kernel's launch count from that run alone (VOC GCN: 8
+               csr_spmm a train step, 4 an eval batch; fused peptides: one
+               fused_gcn_fwd a train step and an eval batch, one
+               fused_gcn_bwd a train step; VOC GAT: 16 spmm_mh + 12
+               sddmm_mh a train step, 4 + 8 an eval batch; both unfused
+               peptides configs: none).  Then a torch.profiler window over
+               steady train steps of each sparse VOC path and the three
+               peptides paths (device busy time, idle share, kernels by
+               time); then each sparse VOC model and the fused stack at
+               full width on a 4-graph batch, on the card and on the CPU:
+               logits and gradients agree.
 The last three lines are the {"kernels": [...]} record, nvidia-smi's line, and
 {"ok": true, "device": {...}}.
 """
@@ -53,6 +65,8 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "GCN" / "voc_superpixels_GCN_sparse.yaml"
 PEPTIDES = REPO / "configs" / "GCN" / "peptides_func_GCN.yaml"
 PEPTIDES_FUSED = REPO / "configs" / "GCN" / "peptides_func_GCN_fused.yaml"
+VOC_GAT = REPO / "configs" / "GAT" / "voc_superpixels_GAT_sparse.yaml"
+PEPTIDES_GAT = REPO / "configs" / "GAT" / "peptides_func_GAT.yaml"
 EPOCHS = 2
 FUSED_SEED = 20261016   # the seeded-dropout case's Philox key
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and float32
@@ -154,6 +168,48 @@ def library_ms(fn) -> tuple[float | None, str]:
         return None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
 
 
+def csr_tensor(row_ptr, col, vals):
+    """A plan's matrix (its real edges) as a torch CSR tensor for a library
+    yardstick, columns sorted within each row (what cuSPARSE expects; the
+    product is unchanged)."""
+    import torch
+    n, nnz = row_ptr.numel() - 1, int(row_ptr[-1])
+    rows = torch.repeat_interleave(torch.arange(n, device=row_ptr.device),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    srt = torch.argsort(rows * n + col[:nnz].long())
+    return torch.sparse_csr_tensor(row_ptr.long(), col[:nnz].long()[srt],
+                                   vals[:nnz][srt], (n, n),
+                                   check_invariants=True)
+
+
+def block_diag_csr(row_ptr, col, vals):
+    """A plan's matrix with per-head weights ``vals`` [E, H] as one
+    block-diagonal [H*N, H*N] torch CSR tensor (block h weighted by
+    vals[:, h]), for a library call that does all heads at once against a
+    head-major [H*N, C] operand.  Also returns the order of its values:
+    block h's values are the real edges ``order`` with head h."""
+    import torch
+    n, nnz = row_ptr.numel() - 1, int(row_ptr[-1])
+    heads = vals.shape[1]
+    rows = torch.repeat_interleave(torch.arange(n, device=row_ptr.device),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    order = torch.argsort(rows * n + col[:nnz].long())
+    blocks = torch.arange(heads, device=row_ptr.device)[:, None]
+    crow = torch.cat([(row_ptr[:-1].long() + blocks * nnz).reshape(-1),
+                      row_ptr.new_full((1,), heads * nnz).long()])
+    cols = (col[:nnz].long()[order] + blocks * n).reshape(-1)
+    values = vals[:nnz][order].t().reshape(-1)
+    return (torch.sparse_csr_tensor(crow, cols, values,
+                                    (heads * n, heads * n),
+                                    check_invariants=True), order)
+
+
+def head_major(x, heads: int):
+    """[N, H*C] -> [H*N, C], head h's rows in block h."""
+    n = x.shape[0]
+    return x.reshape(n, heads, -1).transpose(0, 1).reshape(heads * n, -1)
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -180,6 +236,18 @@ def phase_build():
             print(f"[build]   {line}")
 
 
+def warm_up_card(seconds: float = 1.0) -> None:
+    """Keep the card busy for a while before the first timing, so that the
+    first timed case does not read its clocks ramping up."""
+    import torch
+    a = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a = torch.tanh(a @ a * 1e-3)
+        torch.cuda.synchronize()
+
+
 def phase_kernels():
     """Hold each kernel against its plain version at the main path's
     shapes; returns the kernels' records (without launch counts)."""
@@ -202,16 +270,7 @@ def phase_kernels():
     w, _ = gcn_norm_weights(b.senders, b.receivers, b.edge_mask, n)
     w_t = w.index_select(0, p.t_order)
     print(f"[kernels] VOC batch: N={n} E={e} real edges={nnz}", flush=True)
-
-    def csr_tensor(row_ptr, col, vals):
-        """The same matrix as a torch CSR tensor, columns sorted within each
-        row (what cuSPARSE expects; the product is unchanged)."""
-        rows = torch.repeat_interleave(torch.arange(n, device="cuda"),
-                                       (row_ptr[1:] - row_ptr[:-1]).long())
-        srt = torch.argsort(rows * n + col[:nnz].long())
-        return torch.sparse_csr_tensor(row_ptr.long(), col[:nnz].long()[srt],
-                                       vals[:nnz][srt], (n, n),
-                                       check_invariants=True)
+    warm_up_card()
 
     # Library yardsticks: A, A^T, and A's pattern for the SDDMM.
     a_csr = csr_tensor(p.row_ptr, p.col, w)
@@ -301,50 +360,236 @@ def _timing(case: dict, worst_err: float) -> dict:
             "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
 
 
-def phase_train():
-    """The main path: run_experiment on the card, launch counts from that
-    run alone.  Returns {kernel: launches}."""
+def phase_gat_kernels():
+    """spmm_mh (B6) and sddmm_mh (B7) at the VOC GAT batch shape, against
+    their plain versions: spmm_mh forward and transpose at the widths GAT's
+    layers give it (H*C = 64, 84 and 8), sddmm_mh at C = 16, 21 and 2 with
+    the backward's mixed dtypes, and gat_edge_logits.  Returns the two
+    kernels' records (without launch counts)."""
     import torch
 
     from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (
+        gat_edge_logits, sddmm_mh, sddmm_mh_plain, spmm_mh, spmm_mh_plain)
+
+    cfg = load_config(VOC_GAT)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    dm.with_spmm_plan = True
+    p = next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda").spmm
+    n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
+    print(f"[gat] VOC GAT batch: N={n} E={e} real edges={nnz}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    worst = {"spmm_mh": 0.0, "sddmm_mh": 0.0}
+
+    def run(name, role, label, dtype, kern, plain, nbytes, ops, lib=None):
+        """Hold kern against plain (1e-5*max|ref| when every operand is
+        float32, 1e-4*max|ref| with a bfloat16 one) and time kernel, plain
+        version and the library call.  ``lib``: (one library call, its
+        result in the kernel's layout), held to the same tolerance."""
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol_rel = 1e-5 if dtype == "float32" else 1e-4
+        tol = tol_rel * max(float(ref.abs().max()), 1e-6)
+        if not out.isfinite().all() or err > tol:
+            fail(f"{name} {role} {label} {dtype}: max |err| {err:.3e} > "
+                 f"tolerance {tol:.3e}")
+        if name in worst:
+            worst[name] = max(worst[name], err)
+        lib_ms, why = None, "none"
+        if lib is not None:
+            lib_call, as_ref = lib
+            lib_err = float((as_ref(lib_call()) - ref).abs().max())
+            if lib_err > tol:
+                fail(f"{name} {role} {label} library call: max |err| "
+                     f"{lib_err:.3e} > tolerance {tol:.3e}")
+            lib_ms, why = library_ms(lib_call)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        k_ms, k_host = time_ms(kern)
+        p_ms, _ = time_ms(plain)
+        case = dict(name=name, role=role, label=label, dtype=dtype,
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        cases.append(case)
+        print(f"[gat] {name:8s} {role:9s} {label:10s} {dtype:15s} err "
+              f"{err:.2e} (tol {tol:.1e}) device: kernel {k_ms * 1e3:7.2f} "
+              f"us  plain {p_ms * 1e3:8.2f} us  bound {b_ms * 1e3:5.2f} us "
+              f"({b_by})  library "
+              + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
+                 else f"n/a ({why})")
+              + f"; host a call {k_host * 1e3:6.2f} us", flush=True)
+
+    # Library calls, never made by the port: one torch.sparse.mm (B6) or
+    # one sampled_addmm (B7) on the block-diagonal [H*N, H*N] CSR of the
+    # same edges, against head-major float32 operands laid out beforehand.
+    for heads, c in ((4, 16), (4, 21), (4, 2)):
+        f = heads * c
+        alpha = torch.rand(e, heads, device="cuda", generator=gen)
+        a_t = alpha.index_select(0, p.t_order).contiguous()
+        for role, rp, col, a in (("forward", p.row_ptr, p.col, alpha),
+                                 ("transpose", p.t_row_ptr, p.t_col, a_t)):
+            a_bd, _ = block_diag_csr(rp, col, a)
+            for dtype in (f32, bf16):
+                x = torch.randn(n, f, device="cuda", generator=gen).to(dtype)
+                lib = None
+                if dtype == f32:
+                    x_hm = head_major(x, heads).contiguous()
+                    lib = (lambda x_hm=x_hm, a_bd=a_bd:
+                           torch.sparse.mm(a_bd, x_hm),
+                           lambda y, h=heads: y.reshape(h, n, -1).transpose(
+                               0, 1).reshape(n, -1))
+                run("spmm_mh", role, f"H={heads} C={c}",
+                    str(dtype).replace("torch.", ""),
+                    lambda x=x, a=a, rp=rp, col=col: spmm_mh(x, a, rp, col),
+                    lambda x=x, a=a, rp=rp, col=col: spmm_mh_plain(x, a, rp,
+                                                                   col),
+                    n * f * x.element_size() + nnz * heads * 4
+                    + (n + 1) * 4 + nnz * 4 + n * f * 4,
+                    2.0 * nnz * f, lib)
+    pattern, order = block_diag_csr(p.row_ptr, p.col,
+                                    torch.zeros(e, 4, device="cuda"))
+    for heads, c, ds, dd in ((4, 16, f32, f32), (4, 16, bf16, bf16),
+                             (4, 16, bf16, f32), (4, 21, f32, f32),
+                             (4, 2, f32, f32)):
+        f = heads * c
+        hs = torch.randn(n, f, device="cuda", generator=gen).to(ds)
+        hd = torch.randn(n, f, device="cuda", generator=gen).to(dd)
+        lib = None
+        if (ds, dd) == (f32, f32):
+            # Rows of the pattern are receivers: dst @ src^T, sampled.
+            dst_hm = head_major(hd, heads).contiguous()
+            src_hm_t = head_major(hs, heads).t().contiguous()
+
+            def as_ref(y, h=heads):
+                """Block-diagonal CSR values -> [E, H] in edge order."""
+                dots = torch.zeros(e, h, device="cuda")
+                dots[order] = y.values().reshape(h, nnz).t()
+                return dots
+
+            lib = (lambda dst_hm=dst_hm, src_hm_t=src_hm_t:
+                   torch.sparse.sampled_addmm(pattern, dst_hm, src_hm_t,
+                                              beta=0.0), as_ref)
+        run("sddmm_mh", "dots", f"H={heads} C={c}",
+            "/".join(str(t).replace("torch.", "") for t in (ds, dd))
+            if ds != dd else str(ds).replace("torch.", ""),
+            lambda hs=hs, hd=hd, h=heads: sddmm_mh(hs, hd, p.row, p.col, nnz,
+                                                   h),
+            lambda hs=hs, hd=hd, h=heads: sddmm_mh_plain(hs, hd, p.row,
+                                                         p.col, nnz, h),
+            n * f * (hs.element_size() + hd.element_size()) + nnz * 8
+            + e * heads * 4, 2.0 * nnz * f, lib)
+    a_src = torch.randn(n, 4, device="cuda", generator=gen)
+    a_dst = torch.randn(n, 4, device="cuda", generator=gen)
+
+    def logits_plain():
+        ones = torch.ones_like(a_src)
+        hs = torch.stack([a_src, ones], -1).reshape(n, 8)
+        hd = torch.stack([ones, a_dst], -1).reshape(n, 8)
+        return sddmm_mh_plain(hs, hd, p.row, p.col, nnz, 4)
+
+    run("gat_edge_logits", "logits", "H=4 C=2", "float32",
+        lambda: gat_edge_logits(a_src, a_dst, p), logits_plain,
+        2 * n * 4 * 4 + nnz * 8 + e * 4 * 4, 1.0 * nnz * 4, None)
+    records = {c["name"]: c for c in cases
+               if (c["role"], c["label"], c["dtype"]) in (
+                   ("forward", "H=4 C=16", "float32"),
+                   ("dots", "H=4 C=16", "float32"))}
+    src = "graph_hscn_tpu_torch/csrc/{}.cu"
+    pallas = "graph_hscn_tpu/ops/pallas/multihead_kernel.py:{}"
+    return [
+        {"name": "spmm_mh", "route": "cuda", "source": src.format("spmm_mh"),
+         "replaces": pallas.format(53),
+         **_timing(records["spmm_mh"], worst["spmm_mh"])},
+        {"name": "sddmm_mh", "route": "cuda",
+         "source": src.format("sddmm_mh"), "replaces": pallas.format(133),
+         **_timing(records["sddmm_mh"], worst["sddmm_mh"])},
+    ]
+
+
+def all_kernels():
+    """Every kernel wrapper of the port, each with its launch counter."""
+    from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (sddmm_mh,
+                                                                spmm_mh)
     from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import edge_sddmm
     from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm
+    from graph_hscn_tpu_torch.ops.fused_gcn import (fused_gcn_bwd,
+                                                    fused_gcn_fwd)
+    return (csr_spmm, edge_sddmm, fused_gcn_fwd, fused_gcn_bwd, spmm_mh,
+            sddmm_mh)
+
+
+def train_run(path: Path, expected) -> dict:
+    """One path through run_experiment on the card for EPOCHS epochs, every
+    kernel's launch count from that run alone.  ``expected(cfg, steps,
+    evals)`` gives the counts the path must show (a kernel it leaves out:
+    0).  Returns {kernel: launches}."""
+    import torch
+
+    from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.runner import run_experiment
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(path)
     cfg.training.epochs = EPOCHS
     cfg.training.eval_period = 1
     torch.cuda.reset_peak_memory_stats()
-    csr_spmm.launches = 0
-    edge_sddmm.launches = 0
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     result = run_experiment(cfg, step_timing=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"csr_spmm": csr_spmm.launches,
-                "edge_sddmm": edge_sddmm.launches}
-    layers = cfg.mpnn.num_layers
+    launches = {k.__name__: k.launches for k in kernels}
     steps, evals = result.num_train_steps, result.num_eval_batches
-    want = 2 * layers * steps + layers * evals
-    print(f"[train] {result.epochs_run} epochs, {steps} train steps, "
-          f"{evals} eval batches in {wall:.2f} s; launches {launches} "
-          f"(csr_spmm expected {want} = 2*{layers}*{steps} + "
-          f"{layers}*{evals}; edge_sddmm is off the GCN path: its "
-          "weights carry no gradient)", flush=True)
+    want = dict.fromkeys(launches, 0)
+    want.update(expected(cfg, steps, evals))
+    print(f"[train] {path.name}: {type(result.model).__name__}, "
+          f"{result.epochs_run} epochs, {steps} train steps, {evals} eval "
+          f"batches in {wall:.2f} s; launches {launches} (expected {want})",
+          flush=True)
     losses = [v for h in result.history for k, v in h.items()
               if k.endswith("_loss")]
     if not losses or not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite or missing losses: {losses}")
-    if launches["csr_spmm"] != want:
-        fail(f"csr_spmm launched {launches['csr_spmm']} times, want {want}")
+        fail(f"{path.name}: non-finite or missing losses: {losses}")
+    if launches != want:
+        fail(f"{path.name}: launches {launches}, want {want}")
     ms = [s * 1e3 for s in result.step_seconds]
-    print(f"[train] step ms (synchronised host clock): median "
+    print(f"[train] {path.name} step ms (synchronised host clock): median "
           f"{statistics.median(ms):.3f}, first {ms[0]:.3f}, min "
           f"{min(ms):.3f}, max {max(ms):.3f}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
     for h in result.history:
         print(f"[train] {h}")
     return launches
+
+
+def voc_gcn_launches(cfg, steps, evals):
+    """The sparse GCN: csr_spmm forward and dx a layer in a train step,
+    forward in an eval batch; edge_sddmm never (the GCN weights carry no
+    gradient)."""
+    layers = cfg.mpnn.num_layers
+    return {"csr_spmm": 2 * layers * steps + layers * evals}
+
+
+def voc_gat_launches(cfg, steps, evals):
+    """The sparse GAT with self loops, a layer: forward 2 sddmm_mh
+    (gat_edge_logits for the logits and for the max shift) and 1 spmm_mh;
+    backward 1 spmm_mh + 1 sddmm_mh (spmm_mh's dx and d alpha) and 2
+    spmm_mh (the logits' two operands; the max shift is detached)."""
+    layers = cfg.mpnn.num_layers
+    return {"spmm_mh": 4 * layers * steps + layers * evals,
+            "sddmm_mh": 3 * layers * steps + 2 * layers * evals}
+
+
+def fused_launches(cfg, steps, evals):
+    return {"fused_gcn_fwd": steps + evals, "fused_gcn_bwd": steps}
+
+
+def no_launches(cfg, steps, evals):
+    return {}
 
 
 def profile_steps(label: str, step, make_batch, steps: int = 6) -> None:
@@ -377,8 +622,8 @@ def profile_steps(label: str, step, make_batch, steps: int = 6) -> None:
               f"{len(ts) / steps:5.1f} a step  {name[:90]}")
 
 
-def phase_profile():
-    """The VOC path's fit-loop body (move the batch, train step)."""
+def phase_profile(path: Path, label: str):
+    """A VOC sparse path's fit-loop body (move the batch, train step)."""
     import torch
 
     from graph_hscn_tpu_torch.config.config import load_config
@@ -387,7 +632,7 @@ def phase_profile():
     from graph_hscn_tpu_torch.train.loop import make_train_step
     from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(path)
     dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
     dm.with_spmm_plan = True
     batches = list(dm.train_batches(epoch_seed=dm.seed))
@@ -399,13 +644,13 @@ def phase_profile():
     gen = torch.Generator(device="cuda").manual_seed(0)
     step, _ = make_train_step(model, opt, cfg.training.loss_fn,
                               node_level=True, generator=gen)
-    profile_steps("VOC sparse GCN", step,
-                  lambda i: batches[i % len(batches)].to("cuda"))
+    profile_steps(label, step, lambda i: batches[i % len(batches)].to("cuda"))
 
 
-def phase_reference():
-    """The full-width model on a 4-graph batch: the card (kernels) against
-    the CPU (plain versions), logits and every parameter gradient."""
+def phase_reference(path: Path):
+    """A VOC sparse config's full-width model on a 4-graph batch: the card
+    (kernels) against the CPU (plain versions), logits and every parameter
+    gradient."""
     import torch
 
     from graph_hscn_tpu_torch.config.config import load_config
@@ -416,7 +661,7 @@ def phase_reference():
     from graph_hscn_tpu_torch.runner import set_matmul_precision
     from graph_hscn_tpu_torch.train.loss import criterion
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(path)
     set_matmul_precision(cfg.runtime.matmul_precision)
     dm = DataModule.from_config(cfg.data)
     graphs = dm.split("val")[:4]
@@ -445,9 +690,10 @@ def phase_reference():
         err = float((got.cpu() - ref).abs().max())
         tol = 1e-4 * max(float(ref.abs().max()), 1e-3)
         if not got.isfinite().all() or err > tol:
-            fail(f"card vs CPU: max |err| {err:.3e} > {tol:.3e}")
+            fail(f"{path.name} card vs CPU: max |err| {err:.3e} > {tol:.3e}")
         worst = max(worst, err / max(float(ref.abs().max()), 1e-3))
-    print(f"[reference] 4-graph batch (N={batch.num_nodes_padded}): logits "
+    print(f"[reference] {path.name}, 4-graph batch "
+          f"(N={batch.num_nodes_padded}): logits "
           f"and {len(outs['cpu']) - 1} gradients agree with the CPU, worst "
           f"relative error {worst:.2e}", flush=True)
 
@@ -665,55 +911,7 @@ def phase_fused_kernels():
     ]
 
 
-def phase_train_peptides(path: Path, fused: bool) -> dict:
-    """A peptides config through run_experiment on the card, its launch
-    counts from that run alone.  Returns {kernel: launches}."""
-    import torch
-
-    from graph_hscn_tpu_torch.config.config import load_config
-    from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import edge_sddmm
-    from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm
-    from graph_hscn_tpu_torch.ops.fused_gcn import (fused_gcn_bwd,
-                                                    fused_gcn_fwd)
-    from graph_hscn_tpu_torch.runner import run_experiment
-
-    cfg = load_config(path)
-    cfg.training.epochs = EPOCHS
-    cfg.training.eval_period = 1
-    torch.cuda.reset_peak_memory_stats()
-    kernels = (csr_spmm, edge_sddmm, fused_gcn_fwd, fused_gcn_bwd)
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    result = run_experiment(cfg, step_timing=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
-    steps, evals = result.num_train_steps, result.num_eval_batches
-    want = {"csr_spmm": 0, "edge_sddmm": 0,
-            "fused_gcn_fwd": steps + evals if fused else 0,
-            "fused_gcn_bwd": steps if fused else 0}
-    print(f"[train] {path.name}: {type(result.model).__name__}, "
-          f"{result.epochs_run} epochs, {steps} train steps, {evals} eval "
-          f"batches in {wall:.2f} s; launches {launches} (expected {want})",
-          flush=True)
-    losses = [v for h in result.history for k, v in h.items()
-              if k.endswith("_loss")]
-    if not losses or not all(math.isfinite(v) for v in losses):
-        fail(f"{path.name}: non-finite or missing losses: {losses}")
-    if launches != want:
-        fail(f"{path.name}: launches {launches}, want {want}")
-    ms = [s * 1e3 for s in result.step_seconds]
-    print(f"[train] {path.name} step ms (synchronised host clock): median "
-          f"{statistics.median(ms):.3f}, first {ms[0]:.3f}, min "
-          f"{min(ms):.3f}, max {max(ms):.3f}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
-    for h in result.history:
-        print(f"[train] {h}")
-    return launches
-
-
-def phase_profile_peptides(fused: bool):
+def phase_profile_peptides(path: Path, label: str, fused: bool = False):
     """A peptides train step (assemble the batch on the card, train step)
     under the profiler."""
     import torch
@@ -723,7 +921,6 @@ def phase_profile_peptides(fused: bool):
     from graph_hscn_tpu_torch.train.loop import make_train_step
     from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
-    path = PEPTIDES_FUSED if fused else PEPTIDES
     cfg, dm, ds, model = peptides_setup(path, fused)
     opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
                           cfg.optim.lr, cfg.optim.weight_decay)
@@ -734,8 +931,7 @@ def phase_profile_peptides(fused: bool):
     perm = epoch_permutation(len(ids), cfg.data.batch_size, 0)
     rows = torch.as_tensor(np.where(perm >= 0, ids[np.clip(perm, 0, None)],
                                     -1).astype(np.int32), device="cuda")
-    profile_steps(f"peptides {'fused' if fused else 'unfused'} GCN", step,
-                  lambda i: assemble(ds, rows[i % len(rows)]))
+    profile_steps(label, step, lambda i: assemble(ds, rows[i % len(rows)]))
 
 
 def phase_reference_fused():
@@ -783,17 +979,25 @@ def main() -> int:
         fail("PyTorch is not installed")
     name, count, smi = phase_device()
     phase_build()
-    kernels = phase_kernels() + phase_fused_kernels()
-    launches = phase_train()
-    phase_train_peptides(PEPTIDES, fused=False)
-    fused = phase_train_peptides(PEPTIDES_FUSED, fused=True)
-    launches.update(fused_gcn_fwd=fused["fused_gcn_fwd"],
-                    fused_gcn_bwd=fused["fused_gcn_bwd"])
-    phase_profile()
-    phase_profile_peptides(fused=False)
-    phase_profile_peptides(fused=True)
-    phase_reference()
+    kernels = phase_kernels() + phase_fused_kernels() + phase_gat_kernels()
+    # Each path's launches, counted from its own run alone.
+    launches = train_run(CONFIG, voc_gcn_launches)
+    train_run(PEPTIDES, no_launches)
+    fused = train_run(PEPTIDES_FUSED, fused_launches)
+    gat = train_run(VOC_GAT, voc_gat_launches)
+    train_run(PEPTIDES_GAT, no_launches)
+    for k in ("fused_gcn_fwd", "fused_gcn_bwd"):
+        launches[k] = fused[k]
+    for k in ("spmm_mh", "sddmm_mh"):
+        launches[k] = gat[k]
+    phase_profile(CONFIG, "VOC sparse GCN")
+    phase_profile_peptides(PEPTIDES, "peptides unfused GCN")
+    phase_profile_peptides(PEPTIDES_FUSED, "peptides fused GCN", fused=True)
+    phase_profile(VOC_GAT, "VOC sparse GAT")
+    phase_profile_peptides(PEPTIDES_GAT, "peptides dense GAT")
+    phase_reference(CONFIG)
     phase_reference_fused()
+    phase_reference(VOC_GAT)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,10 @@
 
 A flax ``MPNN`` keeps ``{'params': {'GCNConv_i': {'kernel' [in, out],
 'bias' [out]}}}``; the port's ``MPNN`` keeps ``convs.i.weight`` [out, in]
-and ``convs.i.bias``.  A flax ``FusedDenseGCN`` keeps ``kernel_i`` [in,
+and ``convs.i.bias``.  A GAT ``MPNN`` keeps ``GATConv_i`` with
+``kernel_src`` [in, H*C], ``att_src`` and ``att_dst`` [1, H, C] and
+``bias``; the port keeps ``convs.i.weight`` [H*C, in], ``att_src``,
+``att_dst`` and ``bias``.  A flax ``FusedDenseGCN`` keeps ``kernel_i`` [in,
 out] and ``bias_i``, and so does the port's.  With the weights carried
 across, both packages compute the same function, which is how the tests
 hold one against the other.
@@ -23,16 +26,19 @@ def mpnn_params_from_jax(params) -> dict[str, torch.Tensor]:
     params = params.get("params", params)
     state = {}
     for name, leaves in params.items():
-        m = re.fullmatch(r"GCNConv_(\d+)", name)
+        m = re.fullmatch(r"(GCN|GAT)Conv_(\d+)", name)
         if m is None:
-            raise ValueError(f"unexpected flax module {name!r} (GCN MPNN "
-                             "params hold GCNConv_i only)")
-        i = int(m.group(1))
-        kernel = np.asarray(leaves["kernel"], dtype=np.float32)
-        state[f"convs.{i}.weight"] = torch.from_numpy(kernel.T.copy())
-        if "bias" in leaves:
-            state[f"convs.{i}.bias"] = torch.from_numpy(
-                np.asarray(leaves["bias"], dtype=np.float32).copy())
+            raise ValueError(f"unexpected flax module {name!r} (MPNN params "
+                             "hold GCNConv_i or GATConv_i only)")
+        prefix = f"convs.{int(m.group(2))}."
+        for leaf, value in leaves.items():
+            value = np.asarray(value, dtype=np.float32)
+            if leaf in ("kernel", "kernel_src"):
+                state[prefix + "weight"] = torch.from_numpy(value.T.copy())
+            elif leaf in ("bias", "att_src", "att_dst"):
+                state[prefix + leaf] = torch.from_numpy(value.copy())
+            else:
+                raise ValueError(f"unexpected flax param {name}/{leaf}")
     return state
 
 

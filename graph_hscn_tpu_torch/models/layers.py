@@ -18,7 +18,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from graph_hscn_tpu_torch.ops.spmm import gather_scatter, gcn_norm_weights
+from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (SpmmMhFunction,
+                                                            gat_edge_logits)
+from graph_hscn_tpu_torch.ops.segment import (segment_max, segment_softmax,
+                                              segment_sum)
+from graph_hscn_tpu_torch.ops.spmm import (gather_scatter, gcn_norm_weights,
+                                           kernel_enabled)
 
 
 def resolve_dtype(name: str | None) -> torch.dtype | None:
@@ -147,6 +152,150 @@ class GCNConv(nn.Module):
             outb = outb + diag[:, :, None] * hb
         out = outb.reshape(-1, h.shape[-1])
         return F.pad(out, (0, 0, 0, n - out.shape[0]))
+
+
+GAT_NEGATIVE_SLOPE = 0.2
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.leaky_relu`` at GAT's slope: x where x >= 0 (gradient 1
+    at 0)."""
+    return torch.where(x >= 0, x, GAT_NEGATIVE_SLOPE * x)
+
+
+class GATConv(nn.Module):
+    """PyG GATConv (heads H, concat), the JAX layer's (layers.py:231-415):
+        h_i = W x_i                       (per head)
+        e_ij = LeakyReLU(a_src . h_j + a_dst . h_i, slope=0.2)
+        alpha_ij = softmax_{j in N(i)} e_ij      (over incoming edges)
+        X'_i = sum_j alpha_ij h_j  (+ bias)
+    With ``add_self_loops`` a self-edge joins each node's softmax.
+
+    Branches: the slotted dense one (masked dense attention a graph block);
+    the sparse kernel path when a CSR plan is attached and the backend
+    allows (``gat_edge_logits`` and ``spmm_mh``, dividing after
+    aggregation, the max shift detached); otherwise the sparse gather path.
+
+    Parameters: ``weight`` [H*C, in] (flax ``kernel_src`` [in, H*C]),
+    ``att_src``/``att_dst`` [1, H, C] as in flax, ``bias`` [H*C] (concat)
+    or [C] (mean over heads).
+    """
+
+    def __init__(self, in_features: int, features: int, heads: int = 1,
+                 concat: bool = True, add_self_loops: bool = True,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.heads, self.features = heads, features
+        self.concat = concat
+        self.add_self_loops = add_self_loops
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(heads * features, in_features))
+        glorot_uniform_(self.weight, generator)
+        # flax glorot on a (1, H, C) array: fan_in H, fan_out C.
+        a = math.sqrt(6.0 / (heads + features))
+        self.att_src = nn.Parameter(torch.empty(1, heads, features))
+        self.att_dst = nn.Parameter(torch.empty(1, heads, features))
+        with torch.no_grad():
+            for att in (self.att_src, self.att_dst):
+                att.uniform_(-a, a, generator=generator)
+        dim = heads * features if concat else features
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x, senders, receivers, edge_mask, edge_weight=None,
+                num_nodes=None, plan=None, dense_adj=None, x_dst=None):
+        if x_dst is not None:
+            raise NotImplementedError(
+                "bipartite GATConv (HSCN's local->virtual relation): ROADMAP "
+                "slice 5, HSCN")
+        H, C = self.heads, self.features
+        n = num_nodes or x.shape[0]
+        x, w = promote_dtype(x, self.weight, dtype=self.dtype)
+        h = F.linear(x, w).reshape(-1, H, C)
+        att_src = self.att_src.to(h.dtype)
+        att_dst = self.att_dst.to(h.dtype)
+        if dense_adj is not None:
+            if edge_weight is not None:
+                raise ValueError(
+                    "GATConv dense-slotted path does not support "
+                    "edge_weight; pass dense_adj=None to use the sparse "
+                    "path")
+            out = self._dense(h, n, dense_adj, att_src, att_dst)
+        else:
+            out = self._sparse(h, senders, receivers, edge_mask, n, plan,
+                               att_src, att_dst)
+        out = out.reshape(n, H * C) if self.concat else out.mean(1)
+        return out + self.bias.to(out.dtype)
+
+    def _dense(self, h, n, adj, att_src, att_dst):
+        """Masked dense attention a graph block: scores[g, i, j, h] for the
+        edge j -> i; rows past the blocks are padding (zeros)."""
+        G, S = adj.shape[0], adj.shape[-1]
+        H, C = self.heads, self.features
+        hb = h.reshape(-1, S, H, C)[:G]
+        a_s = (hb * att_src[None]).sum(-1)                 # [G, S, H]
+        a_d = (hb * att_dst[None]).sum(-1)
+        e = leaky_relu(a_s[:, None, :, :] + a_d[:, :, None, :])
+        conn = adj > 0                                     # [G, S, S]
+        if self.add_self_loops:
+            conn = conn | torch.eye(S, dtype=torch.bool, device=adj.device)
+        e = torch.where(conn[..., None], e, -torch.inf)
+        m = e.amax(dim=2, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        ex = torch.where(conn[..., None], torch.exp(e - m), 0.0)
+        alpha = ex / ex.sum(dim=2, keepdim=True).clamp_min(1e-16)
+        out = torch.einsum("gijh,gjhc->gihc", alpha, hb).reshape(-1, H, C)
+        return F.pad(out, (0, 0, 0, 0, 0, n - out.shape[0]))
+
+    def _sparse(self, h, senders, receivers, edge_mask, n, plan, att_src,
+                att_dst):
+        H, C = self.heads, self.features
+        kernels = plan is not None and kernel_enabled(h)
+        mask = edge_mask[:, None]
+        a_src = (h * att_src).sum(-1)                       # [N, H]
+        a_dst = (h * att_dst).sum(-1)
+        if kernels:
+            e = gat_edge_logits(a_src, a_dst, plan)
+        else:
+            e = a_src[senders] + a_dst[receivers]           # [E, H]
+        e = leaky_relu(e)
+
+        def aggregate(alpha):
+            """sum_j alpha_ij h_j a head: all heads in one spmm_mh launch
+            on the kernel path, [E, H, C] messages on the gather path."""
+            if kernels:
+                out = SpmmMhFunction.apply(h.reshape(-1, H * C), alpha, plan)
+                return out.reshape(n, H, C).to(h.dtype)
+            return segment_sum(h[senders] * alpha[..., None], receivers, n)
+
+        if not self.add_self_loops and not kernels:
+            return aggregate(segment_softmax(e, receivers, n, mask=mask))
+        # The max shift, detached: the softmax is invariant to it, so its
+        # total gradient is zero (and the shift's SDDMM needs no backward).
+        m = segment_max(torch.where(mask, e, -torch.inf), receivers, n)
+        if self.add_self_loops:
+            self_e = leaky_relu(a_src + a_dst)              # [N, H]
+            m = torch.maximum(m, self_e)
+        m = torch.where(torch.isfinite(m), m, 0.0).detach()
+        m_e = (gat_edge_logits(torch.zeros_like(m), m, plan) if kernels
+               else m[receivers])
+        exp_e = torch.where(mask, torch.exp(e - m_e), 0.0)
+        denom = segment_sum(exp_e, receivers, n)
+        exp_self = None
+        if self.add_self_loops:
+            exp_self = torch.exp(self_e - m)
+            denom = denom + exp_self
+        if kernels:
+            # Divide after aggregation: a node-level scale instead of an
+            # [E, H] gather of denom; the self term shares it.
+            inv = 1.0 / denom.clamp_min(1e-16)
+            out = aggregate(exp_e) * inv[..., None]
+            if exp_self is not None:
+                out = out + h * (exp_self * inv)[..., None]
+            return out
+        alpha = exp_e / denom[receivers].clamp_min(1e-16)
+        alpha_self = exp_self / denom.clamp_min(1e-16)
+        return aggregate(alpha) + h * alpha_self[..., None]
 
 
 ACTIVATIONS: dict[str, Callable] = {

@@ -1,7 +1,7 @@
 """MPNN baselines: the counterpart of ``graph_hscn_tpu/models/mpnn.py`` (the
-reference's MPNN, mpnn.py:13-76), GCN stacks so far: sparse batches
-through ``gather_scatter``, slotted batches through per-graph dense
-adjacencies.
+reference's MPNN, mpnn.py:13-76), GCN and GAT stacks: sparse batches
+through the CSR kernels or plain gathers, slotted batches through
+per-graph dense adjacencies.
 
 Structure per the reference:
   layer 0:   conv(F -> H)
@@ -9,6 +9,10 @@ Structure per the reference:
   layer L-1: conv(H -> C)
   readout:   segment-mean over the batch vector (mpnn.py:60), or none for
              node-level tasks.
+
+Multi-head GAT (``num_heads`` > 1) follows PyG: hidden layers split the
+width across H concatenated heads of hidden // H channels; the output
+layer averages H heads of num_classes channels.
 
 Reference quirk #1, behind ``compat_double_relu``: F.relu is hard-coded
 before the configured activation (mpnn.py:52,57); True reproduces relu∘act,
@@ -21,7 +25,8 @@ import torch
 from torch import nn
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
-from graph_hscn_tpu_torch.models.layers import ACTIVATIONS, GCNConv, dropout
+from graph_hscn_tpu_torch.models.layers import (ACTIVATIONS, GATConv,
+                                               GCNConv, dropout)
 from graph_hscn_tpu_torch.ops.dense import resolve_dense_adj
 from graph_hscn_tpu_torch.ops.segment import graph_readout_mean
 
@@ -32,12 +37,13 @@ class MPNN(nn.Module):
                  dropout: float = 0.0, use_batch_norm: bool = False,
                  use_layer_norm: bool = False,
                  compat_double_relu: bool = True, readout: str = "mean",
-                 dtype: torch.dtype | None = None,
+                 dtype: torch.dtype | None = None, num_heads: int = 1,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if conv_type.lower() != "gcn":
+        self.conv_type = conv_type.lower()
+        if self.conv_type not in ("gcn", "gat"):
             raise NotImplementedError(
-                f"conv_type {conv_type!r}: ROADMAP queue A, item 4")
+                f"conv_type {conv_type!r}: ROADMAP queue A, item 8")
         if use_batch_norm or use_layer_norm:
             raise NotImplementedError(
                 "use_batch_norm / use_layer_norm: ROADMAP queue A, item 4")
@@ -47,9 +53,16 @@ class MPNN(nn.Module):
         self.readout = readout
         dims = [hidden_channels] * (num_layers - 1) + [num_classes]
         ins = [num_features] + dims[:-1]
-        self.convs = nn.ModuleList(
-            GCNConv(i, o, dtype=dtype, generator=generator)
-            for i, o in zip(ins, dims))
+        self.convs = nn.ModuleList()
+        for i, (d_in, d_out) in enumerate(zip(ins, dims)):
+            if self.conv_type == "gcn":
+                conv = GCNConv(d_in, d_out, dtype=dtype, generator=generator)
+            else:
+                hidden = i < num_layers - 1
+                conv = GATConv(d_in, d_out // num_heads if hidden else d_out,
+                               heads=num_heads, concat=hidden, dtype=dtype,
+                               generator=generator)
+            self.convs.append(conv)
 
     def forward(self, batch: GraphBatch,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -59,7 +72,9 @@ class MPNN(nn.Module):
         n = batch.num_nodes_padded
         extra = {"plan": batch.spmm}
         dense_adj = resolve_dense_adj(batch)
-        if dense_adj is not None:
+        if dense_adj is not None and self.conv_type == "gat":
+            extra = {"dense_adj": dense_adj}
+        elif dense_adj is not None:
             # Slotted dense path: normalize the adjacency ONCE for the whole
             # stack (it is layer-independent).
             adj_n, diag_n = GCNConv.normalize_dense(dense_adj)
@@ -85,12 +100,11 @@ class MPNN(nn.Module):
 def build_mpnn(model_cfg, num_features: int, num_classes: int,
                compat: bool = True, readout: str = "mean", dtype=None,
                generator: torch.Generator | None = None) -> MPNN:
-    """Mirror of the JAX ``build_mpnn``, its GCN branch; the other conv
-    types are later slices of the port."""
-    if model_cfg.conv_type.lower() != "gcn":
+    """Mirror of the JAX ``build_mpnn``, its GCN and GAT branches; the
+    other conv types are later slices of the port."""
+    if model_cfg.conv_type.lower() not in ("gcn", "gat"):
         raise NotImplementedError(
-            f"conv_type {model_cfg.conv_type!r}: ROADMAP queue A, items 4 "
-            "and 8")
+            f"conv_type {model_cfg.conv_type!r}: ROADMAP queue A, item 8")
     return MPNN(
         conv_type=model_cfg.conv_type,
         activation=model_cfg.activation,
@@ -104,5 +118,6 @@ def build_mpnn(model_cfg, num_features: int, num_classes: int,
         compat_double_relu=compat,
         readout=readout,
         dtype=dtype,
+        num_heads=model_cfg.num_heads,
         generator=generator,
     )

@@ -94,6 +94,14 @@ def csr_plan(senders: np.ndarray, receivers: np.ndarray,
         num_nodes=int(num_nodes), num_edges=n_real)
 
 
+def rows_of_slots(row_ptr: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """The row of each edge slot of a CSR plan; the slots past row_ptr[N]
+    (the padding) get the spare row N, so a plain version can sum them
+    into a row it drops without reading a count back to the host."""
+    slots = torch.arange(n_slots, device=row_ptr.device, dtype=row_ptr.dtype)
+    return torch.searchsorted(row_ptr, slots, right=True) - 1
+
+
 def csr_spmm_plain(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """:func:`csr_spmm` in plain PyTorch (``index_select`` + ``index_add_``
@@ -102,11 +110,10 @@ def csr_spmm_plain(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
     For bfloat16 x each message is ``bf16(bf16(w) * x_j)``, as the Pallas
     tile body rounds it (spmm_kernel.py:223,230); the sum is float32.
     Edge slots past row_ptr[N] (the padding) are summed into a spare row
-    that is dropped, so the function never reads a count back to the host.
+    that is dropped.
     """
     n = row_ptr.numel() - 1
-    slots = torch.arange(col.numel(), device=x.device, dtype=row_ptr.dtype)
-    rows = torch.searchsorted(row_ptr, slots, right=True) - 1
+    rows = rows_of_slots(row_ptr, col.numel())
     w = w.float()
     if x.dtype == torch.bfloat16:
         w = w.to(torch.bfloat16).float()

@@ -28,6 +28,32 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     return totals / counts.reshape((-1,) + (1,) * (data.dim() - 1))
 
 
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Max within segments; an empty segment gives -inf (as
+    ``jax.ops.segment_max``)."""
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), -torch.inf,
+                     dtype=data.dtype, device=data.device)
+    idx = segment_ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, idx, data, "amax", include_self=False)
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Numerically stable softmax within segments (GAT attention over
+    incoming edges).  ``mask``: optional bool, broadcast against logits;
+    masked entries get weight 0 and add nothing to the normalizer."""
+    if mask is not None:
+        logits = torch.where(mask, logits, -torch.inf)
+    maxes = segment_max(logits, segment_ids, num_segments)
+    maxes = torch.where(torch.isfinite(maxes), maxes, 0.0)
+    shifted = logits - maxes[segment_ids]
+    exp = torch.where(torch.isfinite(shifted), torch.exp(shifted), 0.0)
+    denom = segment_sum(exp, segment_ids, num_segments).clamp_min(1e-16)
+    return exp / denom[segment_ids]
+
+
 def graph_readout_mean(node_values: torch.Tensor, node_graph: torch.Tensor,
                        num_graphs: int) -> torch.Tensor:
     """scatter_mean over the batch vector — the MPNN readout

@@ -40,7 +40,11 @@ def get_backend() -> str:
     return _BACKEND
 
 
-def _use_kernel(x: torch.Tensor) -> bool:
+def kernel_enabled(x: torch.Tensor) -> bool:
+    """The backend rule for every layer that calls the hand-written
+    kernels (``gather_scatter`` here, ``GATConv``'s attention kernels): the
+    JAX package's ``pallas_enabled``, with "auto" taking the kernel on
+    CUDA."""
     if _BACKEND == "xla":
         return False
     if _BACKEND == "pallas":
@@ -73,7 +77,7 @@ def gather_scatter(
     num_nodes = num_nodes if num_nodes is not None else x.shape[0]
     if edge_weight is not None and not weight_needs_grad:
         edge_weight = edge_weight.detach()
-    if plan is not None and not messages_out and _use_kernel(x):
+    if plan is not None and not messages_out and kernel_enabled(x):
         if num_nodes != plan.num_nodes:
             raise ValueError(f"num_nodes {num_nodes} != plan's "
                              f"{plan.num_nodes}")

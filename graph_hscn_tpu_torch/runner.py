@@ -1,8 +1,8 @@
 """Experiment runner: config -> data -> model -> training.
 
 The counterpart of ``graph_hscn_tpu/runner.py`` (the reference's
-run_train, main.py:85-120), single-device MPNN path: the GCN ``MPNN`` or the
-fused ``FusedDenseGCN``, trained by the host loop ``fit`` or the
+run_train, main.py:85-120), single-device MPNN path: the GCN or GAT ``MPNN``
+or the fused ``FusedDenseGCN``, trained by the host loop ``fit`` or the
 device-resident ``fit_device``.  Execution paths are routed as in the JAX
 package (runner.py:49-61, :120-138 and :212-238); the paths of later slices
 raise ``NotImplementedError`` naming their ROADMAP item, so no config falls
@@ -98,7 +98,7 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
     shape = _resolve_mesh_shape(cfg.mesh.shape)
     mesh_size = int(np.prod(shape))
     if cfg.hscn is not None:
-        raise NotImplementedError("HSCN pipeline: ROADMAP slice 3 "
+        raise NotImplementedError("HSCN pipeline: ROADMAP slice 5 "
                                   "(queue A, item 7)")
     # Initial weights from a seeded generator on the host, then moved.
     init_gen = torch.Generator().manual_seed(cfg.training.seed)

@@ -7,6 +7,10 @@ no conftest):
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_cuda.py
 
 Tolerance: float32 sums in another order, rtol=1e-5, atol=1e-5*max|ref|.
+spmm_mh in bfloat16 is held at rtol=1e-4, atol=1e-4*max|ref|: kernel and
+plain version round each term bf16(f32(x_j) * alpha) alike, while another
+rounding rule fails it (tests/test_torch_gat.py,
+test_bf16_tolerance_catches_a_missing_rounding_point).
 The fused GCN stack in bfloat16 is held at rtol=1e-4, atol=1e-4*max|ref|:
 kernel and plain version round the same float32 values to bfloat16 at the
 same points (products of bfloat16 values are exact in float32, so most sums
@@ -24,6 +28,12 @@ from graph_hscn_tpu_torch.data.synthetic import make_voc_superpixels
 from graph_hscn_tpu_torch.ops import spmm
 from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import (edge_sddmm,
                                                         edge_sddmm_plain)
+from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (SpmmMhFunction,
+                                                            gat_edge_logits,
+                                                            sddmm_mh,
+                                                            sddmm_mh_plain,
+                                                            spmm_mh,
+                                                            spmm_mh_plain)
 from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm, csr_spmm_plain
 from graph_hscn_tpu_torch.ops.fused_gcn import (dropout_bits_plain,
                                                 dropout_threshold,
@@ -164,6 +174,119 @@ def test_run_experiment_on_the_card_launches_the_kernel():
     assert np.isfinite(result.history[0]["train_loss"])
     assert csr_spmm.launches - before == (2 * 2 * result.num_train_steps
                                           + 2 * result.num_eval_batches)
+
+
+@pytest.mark.parametrize("heads,c", [(4, 16), (4, 21), (4, 2), (1, 16),
+                                     (3, 50)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_mh_matches_plain(batch, heads, c, dtype):
+    """Forward and transpose, at the GAT path's widths (H*C = 64, 84 and
+    8, C not a power of two) and a width past one 128-feature pass."""
+    need_card()
+    p = batch.spmm.to("cuda")
+    n = p.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(heads * c)
+    x = torch.randn(n, heads * c, device="cuda", generator=gen).to(dtype)
+    alpha = torch.rand(p.col.numel(), heads, device="cuda", generator=gen)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    before = spmm_mh.launches
+    for rp, col, a in ((p.row_ptr, p.col, alpha),
+                       (p.t_row_ptr, p.t_col, alpha[p.t_order].contiguous())):
+        out = spmm_mh(x, a, rp, col)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and out.shape == (n, heads * c)
+        assert_close(out, spmm_mh_plain(x, a, rp, col), tol)
+    assert spmm_mh.launches == before + 2
+
+
+@pytest.mark.parametrize("heads,c", [(4, 16), (4, 21), (4, 2), (1, 2)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_sddmm_mh_matches_plain(batch, heads, c, dtypes):
+    need_card()
+    p = batch.spmm.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    hs = torch.randn(p.num_nodes, heads * c, device="cuda", generator=gen)
+    hd = torch.randn(p.num_nodes, heads * c, device="cuda", generator=gen)
+    hs, hd = hs.to(dtypes[0]), hd.to(dtypes[1])
+    before = sddmm_mh.launches
+    out = sddmm_mh(hs, hd, p.row, p.col, p.num_edges, heads)
+    torch.cuda.synchronize()
+    assert sddmm_mh.launches == before + 1
+    assert out.shape == (p.col.numel(), heads)
+    assert_close(out, sddmm_mh_plain(hs, hd, p.row, p.col, p.num_edges,
+                                     heads))
+    assert not out[p.num_edges:].any()
+
+
+def test_multihead_grads_match_cpu(batch):
+    """SpmmMhFunction and gat_edge_logits on the card (kernels) against
+    the CPU (plain versions): outputs and every gradient."""
+    need_card()
+    n, e = batch.num_nodes_padded, batch.num_edges_padded
+    rng = np.random.default_rng(8)
+    x0 = torch.tensor(rng.normal(size=(n, 84)).astype(np.float32))
+    a0 = torch.tensor(rng.uniform(0.1, 1.0, (e, 4)).astype(np.float32))
+    s0 = torch.tensor(rng.normal(size=(n, 4)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(n, 84)).astype(np.float32))
+    ge = torch.tensor(rng.normal(size=(e, 4)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        b = batch.to(dev)
+        x, a, s, d = (t.to(dev, copy=True).requires_grad_()
+                      for t in (x0, a0, s0, -s0))
+        out = SpmmMhFunction.apply(x, a, b.spmm)
+        out.backward(g.to(dev))
+        logits = gat_edge_logits(s, d, b.spmm)
+        logits.backward(ge.to(dev) * b.edge_mask[:, None])
+        res[dev] = (out, x.grad, a.grad, logits, s.grad, d.grad)
+    for got, ref in zip(res["cuda"], res["cpu"]):
+        assert_close(got, ref)
+
+
+def test_multihead_wrappers_refuse_what_the_kernels_do_not_take(batch):
+    need_card()
+    p = batch.spmm.to("cuda")
+    n = p.num_nodes
+    x = torch.randn(n, 8, device="cuda")
+    a = torch.rand(p.col.numel(), 4, device="cuda")
+    with pytest.raises(TypeError):
+        spmm_mh(x.double(), a, p.row_ptr, p.col)
+    with pytest.raises(TypeError):
+        spmm_mh(x, a.to(torch.bfloat16), p.row_ptr, p.col)
+    with pytest.raises(ValueError, match="multiple"):
+        spmm_mh(torch.randn(n, 9, device="cuda"), a, p.row_ptr, p.col)
+    with pytest.raises(ValueError, match="length"):
+        spmm_mh(x, a[:-1].contiguous(), p.row_ptr, p.col)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_mh(torch.randn(8, n, device="cuda").t(), a, p.row_ptr, p.col)
+    with pytest.raises(ValueError, match="multiple"):
+        sddmm_mh(x, x, p.row, p.col, p.num_edges, 3)
+    with pytest.raises(TypeError):
+        sddmm_mh(x.half(), x, p.row, p.col, p.num_edges, 4)
+
+
+def test_run_experiment_gat_on_the_card_launches_the_kernels():
+    """The VOC GAT config, shrunk to 2 layers: a train step launches 4
+    spmm_mh and 3 sddmm_mh a layer, an eval batch 1 and 2."""
+    need_card()
+    from pathlib import Path
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.runner import run_experiment
+    cfg = load_config(Path(__file__).parents[1] / "configs" / "GAT"
+                      / "voc_superpixels_GAT_sparse.yaml")
+    cfg.data.num_graphs = 48
+    cfg.mpnn.num_layers = 2
+    cfg.training.epochs = 1
+    s0, d0 = spmm_mh.launches, sddmm_mh.launches
+    result = run_experiment(cfg)
+    assert np.isfinite(result.history[0]["train_loss"])
+    steps, evals = result.num_train_steps, result.num_eval_batches
+    assert steps > 0 and evals > 0
+    assert spmm_mh.launches - s0 == 2 * (4 * steps + evals)
+    assert sddmm_mh.launches - d0 == 2 * (3 * steps + 2 * evals)
 
 
 DIMS = (9, 16, 16, 10)        # peptides-func: F0 9, hidden 16, 10 classes

@@ -178,7 +178,15 @@ def test_gelu_is_the_tanh_form():
 
 @pytest.mark.parametrize("conv_type", ["gat", "gin", "gatedgcn", "gps"])
 def test_build_mpnn_other_convs_are_later_slices(conv_type):
+    """GIN, GatedGCN and GPS are later slices.  GAT builds; of it only the
+    bipartite call (HSCN's local->virtual relation) is a later slice."""
     from graph_hscn_tpu_torch.config.config import MPNNConfig
+    cfg = MPNNConfig(conv_type=conv_type, activation="relu", num_heads=1)
+    if conv_type != "gat":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_mpnn(cfg, 9, 10)
+        return
+    conv = build_mpnn(cfg, 9, 10).convs[0]
+    x, idx = torch.zeros(3, 9), torch.zeros(1, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_mpnn(MPNNConfig(conv_type=conv_type, activation="relu",
-                              num_heads=1), 9, 10)
+        conv(x, idx, idx, torch.ones(1, dtype=torch.bool), x_dst=x)

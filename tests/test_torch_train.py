@@ -178,8 +178,7 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
      {"training.checkpoint_dir": "ckpt"}, "checkpoint"),
     ("GCN/voc_superpixels_GCN_sparse.yaml", {"runtime.debug_nans": True},
      "debug_nans"),
-    ("GAT/peptides_func_GAT.yaml", {"runtime.device_dataset": "off"},
-     "conv_type"),
+    ("GAT/peptides_func_GAT.yaml", {"mpnn.conv_type": "gps"}, "conv_type"),
 ])
 def test_run_experiment_later_slices_raise(path, change, match):
     cfg = _small_cfg(ROOT / "configs" / path)
