@@ -23,23 +23,40 @@ Phases; any failure exits non-zero:
                  float32), 21 and 2, and gat_edge_logits; the library
                  call is one torch.sparse.mm / sampled_addmm on the
                  block-diagonal [H*N, H*N] CSR, checked against the plain
-                 version too.
+                 version too;
+               - segment_reduce at the VOC GatedGCN batch (N=19048, 72832
+                 edge slots, F=64): float32 and bfloat16, the receiver side
+                 (rows in edge order) and the sender side (rows taken in
+                 t_order), and a batch with empty rows; the library call is
+                 torch.segment_reduce on the rows laid out beforehand,
+                 checked against the plain version too;
+               - [hbm] csr_spmm forward and transpose and edge_sddmm at F=128
+                 on the 142 x 142 and 226 x 226 lattices (N=20164 and 51076),
+                 the sizes at which the TPU takes its HBM-streamed kernels
+                 (B4a-c), beside torch.sparse.mm / sampled_addmm.
                Device times: CUDA events over calls queued behind a device
                sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
+               segment_reduce and [hbm] are timed cold, each call on the
+               next of copies of its inputs that span 4x the L2 (rotating),
+               so that their times compare with the HBM bound; the kernel's
+               warm time (the same inputs call after call) is printed too.
   4. train   - run_experiment at full width for 2 epochs each on
                configs/GCN/voc_superpixels_GCN_sparse.yaml,
                configs/GCN/peptides_func_GCN.yaml,
                configs/GCN/peptides_func_GCN_fused.yaml,
-               configs/GAT/voc_superpixels_GAT_sparse.yaml and
-               configs/GAT/peptides_func_GAT.yaml: finite losses, and every
-               kernel's launch count from that run alone (VOC GCN: 8
-               csr_spmm a train step, 4 an eval batch; fused peptides: one
-               fused_gcn_fwd a train step and an eval batch, one
-               fused_gcn_bwd a train step; VOC GAT: 16 spmm_mh + 12
-               sddmm_mh a train step, 4 + 8 an eval batch; both unfused
+               configs/GAT/voc_superpixels_GAT_sparse.yaml,
+               configs/GAT/peptides_func_GAT.yaml,
+               configs/GatedGCN/voc_superpixels_GatedGCN_sparse.yaml and
+               configs/GatedGCN/peptides_struct_GatedGCN.yaml: finite
+               losses, and every kernel's launch count from that run alone
+               (VOC GCN: 8 csr_spmm a train step, 4 an eval batch; fused
+               peptides: one fused_gcn_fwd a train step and an eval batch,
+               one fused_gcn_bwd a train step; VOC GAT: 16 spmm_mh + 12
+               sddmm_mh a train step, 4 + 8 an eval batch; VOC GatedGCN: 20
+               segment_reduce a train step, 8 an eval batch; the unfused
                peptides configs: none).  Then a torch.profiler window over
-               steady train steps of each sparse VOC path and the three
+               steady train steps of each sparse VOC path and the four
                peptides paths (device busy time, idle share, kernels by
                time); then each sparse VOC model and the fused stack at
                full width on a 4-graph batch, on the card and on the CPU:
@@ -51,6 +68,7 @@ The last three lines are the {"kernels": [...]} record, nvidia-smi's line, and
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import statistics
@@ -67,12 +85,18 @@ PEPTIDES = REPO / "configs" / "GCN" / "peptides_func_GCN.yaml"
 PEPTIDES_FUSED = REPO / "configs" / "GCN" / "peptides_func_GCN_fused.yaml"
 VOC_GAT = REPO / "configs" / "GAT" / "voc_superpixels_GAT_sparse.yaml"
 PEPTIDES_GAT = REPO / "configs" / "GAT" / "peptides_func_GAT.yaml"
+VOC_GATED = (REPO / "configs" / "GatedGCN"
+             / "voc_superpixels_GatedGCN_sparse.yaml")
+PEPTIDES_GATED = (REPO / "configs" / "GatedGCN"
+                  / "peptides_struct_GatedGCN.yaml")
+HBM_SIDES = (142, 226)   # lattices of N = 20164 and 51076 (B4a, B4b sizes)
 EPOCHS = 2
 FUSED_SEED = 20261016   # the seeded-dropout case's Philox key
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and float32
 # operations/s outside the tensor cores (the kernels' FMAs run there).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2**20
 
 
 def fail(msg: str) -> None:
@@ -150,6 +174,29 @@ def time_ms(fn, iters: int = 100, warmup: int = 20) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n, host_ms
+
+
+def nbytes_of(t) -> int:
+    """Bytes of a dense or CSR tensor."""
+    import torch
+    if t.layout == torch.sparse_csr:
+        return sum(nbytes_of(u) for u in (t.crow_indices(), t.col_indices(),
+                                          t.values()))
+    return t.numel() * t.element_size()
+
+
+def rotating(fn, *args):
+    """A call of ``fn`` on the next of k copies of ``args``, k such that the
+    copies span at least 4x the L2: ``time_ms`` of it times calls whose
+    inputs come from HBM, as ``bound_ms`` assumes, and not from an L2 that
+    the previous call filled.  Arguments that are not tensors are shared."""
+    import torch
+    size = sum(nbytes_of(a) for a in args if isinstance(a, torch.Tensor))
+    k = max(2, math.ceil(4 * L2_BYTES / size))
+    copies = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args) for _ in range(k - 1)]
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -509,16 +556,221 @@ def phase_gat_kernels():
     ]
 
 
+def phase_gatedgcn_kernels():
+    """segment_reduce (B5) at the VOC GatedGCN batch shape (F = 64, the
+    layers' width), against its plain version: float32 and bfloat16 rows,
+    the receiver side (rows in edge order, segment_sum_planned and the
+    receiver gather's backward) and the sender side (rows taken in t_order,
+    the sender gathers' backward), and the same batch with every other
+    row's edges taken out (empty rows).  Kernel, plain version and library
+    call are timed cold (``rotating``).  Returns the kernel's record
+    (without its launch count)."""
+    import torch
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.ops.cuda.segment_reduce_kernel import (
+        segment_reduce, segment_reduce_plain)
+
+    cfg = load_config(VOC_GATED)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    dm.with_spmm_plan = True
+    p = next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda").spmm
+    n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
+    f = cfg.mpnn.hidden_channels
+    # Empty rows: every other row keeps no edge (its edges leave the CSR).
+    counts = (p.row_ptr[1:] - p.row_ptr[:-1]).clone()
+    counts[::2] = 0
+    sparse_ptr = torch.zeros_like(p.row_ptr)
+    sparse_ptr[1:] = counts.cumsum(0)
+    nnz_sparse = int(sparse_ptr[-1])
+    print(f"[gatedgcn] VOC GatedGCN batch: N={n} E={e} real edges={nnz}, "
+          f"F={f}; empty-rows case: {int((counts == 0).sum())} empty rows, "
+          f"{nnz_sparse} edges", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        msgs = torch.randn(e, f, device="cuda", generator=gen).to(dtype)
+        esize = msgs.element_size()
+        f32 = dtype == torch.float32
+        for label, rp, order, rows in (
+                ("receiver", p.row_ptr, None, nnz),
+                ("sender", p.t_row_ptr, p.t_order, nnz),
+                ("empty rows", sparse_ptr, None, nnz_sparse)):
+            out = segment_reduce(msgs, rp, order)
+            ref = segment_reduce_plain(msgs, rp, order)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            tol = (1e-5 if f32 else 1e-4) * max(float(ref.abs().max()), 1e-6)
+            if not out.isfinite().all() or err > tol:
+                fail(f"segment_reduce {label} {dtype}: max |err| {err:.3e} "
+                     f"> tolerance {tol:.3e}")
+            if label == "empty rows" and out[counts == 0].any():
+                fail("segment_reduce: an empty row is not 0")
+            worst = max(worst, err)
+            lib_ms, why = None, "float32 only"
+            if f32:
+                # The library call on the rows laid out beforehand.
+                laid = (msgs[:rows] if order is None
+                        else msgs.index_select(0, order[:rows]))
+
+                def lib(laid, offsets):
+                    return torch.segment_reduce(laid, "sum", offsets=offsets)
+
+                try:
+                    lib_err = float((lib(laid, rp.long()) - ref).abs().max())
+                except (RuntimeError, NotImplementedError) as exc:
+                    why = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+                else:
+                    if lib_err > tol:
+                        fail(f"segment_reduce {label} library call: max "
+                             f"|err| {lib_err:.3e} > tolerance {tol:.3e}")
+                    lib_ms, why = library_ms(rotating(lib, laid, rp.long()))
+            nbytes = (rows * f * esize + (n + 1) * 4 + n * f * 4
+                      + (rows * 8 if order is not None else 0))
+            b_ms, b_by = bound_ms(nbytes, 1.0 * rows * f)
+            # Cold: inputs from HBM (the bound's premise); warm: the same
+            # inputs call after call, left in the L2 by the previous one.
+            k_ms, k_host = time_ms(rotating(segment_reduce, msgs, rp, order))
+            warm_ms, _ = time_ms(lambda m=msgs, rp=rp, o=order:
+                                 segment_reduce(m, rp, o))
+            p_ms, _ = time_ms(rotating(segment_reduce_plain, msgs, rp, order))
+            case = dict(label=label, dtype=str(dtype).replace("torch.", ""),
+                        max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            cases.append(case)
+            print(f"[gatedgcn] segment_reduce {label:10s} F={f} "
+                  f"{case['dtype']:8s} err {err:.2e} (tol {tol:.1e}) device, "
+                  f"cold L2: kernel {k_ms * 1e3:7.2f} us  plain "
+                  f"{p_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us "
+                  f"({b_by})  library "
+                  + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
+                     else f"n/a ({why})")
+                  + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
+                  f"{k_host * 1e3:6.2f} us", flush=True)
+    (record,) = [c for c in cases
+                 if (c["label"], c["dtype"]) == ("receiver", "float32")]
+    return [{"name": "segment_reduce", "route": "cuda",
+             "source": "graph_hscn_tpu_torch/csrc/segment_reduce.cu",
+             "replaces": "graph_hscn_tpu/ops/pallas/sddmm_kernel.py:187",
+             **_timing(record, worst)}]
+
+
+def phase_hbm():
+    """csr_spmm (forward and transpose) and edge_sddmm at F = 128 on the
+    square 4-neighbour lattices at which the TPU routes the SpMM to its
+    HBM-streamed kernels (B4a at N = 20164, B4b at N = 51076; B4c is their
+    dw, edge_sddmm's function), against their plain versions and beside
+    torch.sparse.mm / sampled_addmm, all timed cold.  Same tolerances as
+    phase 3."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.synthetic import lattice_edges
+    from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import (
+        edge_sddmm, edge_sddmm_plain)
+    from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import (csr_plan,
+                                                           csr_spmm,
+                                                           csr_spmm_plain)
+
+    f = 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for side in HBM_SIDES:
+        p = csr_plan(*lattice_edges(side)[1:], side * side).to("cuda")
+        n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
+        w = torch.rand(e, device="cuda", generator=gen)
+        w_t = w.index_select(0, p.t_order).contiguous()
+        a_csr = csr_tensor(p.row_ptr, p.col, w)
+        at_csr = csr_tensor(p.t_row_ptr, p.t_col, w_t)
+        a_pat = csr_tensor(p.row_ptr, p.col, torch.zeros_like(w))
+        print(f"[hbm] {side} x {side} lattice: N={n} E={e} real edges={nnz} "
+              f"F={f}", flush=True)
+        g = torch.randn(n, f, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, f, device="cuda", generator=gen).to(dtype)
+            sz = x.element_size()
+            f32 = dtype == torch.float32
+            xt = x.t().contiguous()
+            # (name, role, kernel, plain version, their arguments, bytes,
+            # operations, library call, its arguments)
+            runs = [
+                ("csr_spmm", "forward", csr_spmm, csr_spmm_plain,
+                 (x, p.row_ptr, p.col, w),
+                 n * f * sz + (n + 1) * 4 + nnz * 8 + n * f * 4,
+                 2.0 * nnz * f, torch.sparse.mm, (a_csr, x)),
+                ("csr_spmm", "transpose", csr_spmm, csr_spmm_plain,
+                 (x, p.t_row_ptr, p.t_col, w_t),
+                 n * f * sz + (n + 1) * 4 + nnz * 8 + n * f * 4,
+                 2.0 * nnz * f, torch.sparse.mm, (at_csr, x)),
+                ("edge_sddmm", "dw", edge_sddmm, edge_sddmm_plain,
+                 (x, g, p.row, p.col, nnz),
+                 n * f * sz + n * f * 4 + nnz * 8 + e * 4,
+                 2.0 * nnz * f,
+                 lambda a, g, xt: torch.sparse.sampled_addmm(a, g, xt,
+                                                             beta=0.0),
+                 (a_pat, g, xt)),
+            ]
+            for name, role, kern, plain, args, nbytes, ops, lib, lib_args \
+                    in runs:
+                out, ref = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                tol = (1e-5 if f32 else 1e-4) * max(float(ref.abs().max()),
+                                                    1e-6)
+                if not out.isfinite().all() or err > tol:
+                    fail(f"{name} {role} N={n} {dtype}: max |err| {err:.3e} "
+                         f"> tolerance {tol:.3e}")
+                lib_ms, why = None, "float32 only"
+                if f32:
+                    lib_out = lib(*lib_args)
+                    if lib_out.layout != torch.strided:   # sampled_addmm
+                        lib_out = lib_out.values()
+                        ref_cmp = csr_values_of(p, ref)
+                    else:
+                        ref_cmp = ref
+                    lib_err = float((lib_out - ref_cmp).abs().max())
+                    if lib_err > tol:
+                        fail(f"{name} {role} N={n} library call: max |err| "
+                             f"{lib_err:.3e} > tolerance {tol:.3e}")
+                    lib_ms, why = library_ms(rotating(lib, *lib_args))
+                b_ms, b_by = bound_ms(nbytes, ops)
+                # Cold L2 (the bound's premise), and warm beside it.
+                k_ms, k_host = time_ms(rotating(kern, *args))
+                warm_ms, _ = time_ms(lambda: kern(*args))
+                p_ms, _ = time_ms(rotating(plain, *args))
+                print(f"[hbm] {name:10s} {role:9s} N={n:5d} F={f} "
+                      f"{str(dtype).replace('torch.', ''):8s} err {err:.2e} "
+                      f"(tol {tol:.1e}) device, cold L2: kernel "
+                      f"{k_ms * 1e3:7.2f} us  plain {p_ms * 1e3:8.2f} us  "
+                      f"bound {b_ms * 1e3:5.2f} us ({b_by})  library "
+                      + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
+                         else f"n/a ({why})")
+                      + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a "
+                      f"call {k_host * 1e3:6.2f} us", flush=True)
+
+
+def csr_values_of(p, dots):
+    """Per-edge values [E] (real edges first, in the plan's edge order) in
+    the value order of :func:`csr_tensor`'s matrix (columns sorted within
+    each row)."""
+    import torch
+    n, nnz = p.num_nodes, p.num_edges
+    rows = torch.repeat_interleave(torch.arange(n, device=p.row_ptr.device),
+                                   (p.row_ptr[1:] - p.row_ptr[:-1]).long())
+    return dots[:nnz][torch.argsort(rows * n + p.col[:nnz].long())]
+
+
 def all_kernels():
     """Every kernel wrapper of the port, each with its launch counter."""
     from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (sddmm_mh,
                                                                 spmm_mh)
     from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import edge_sddmm
+    from graph_hscn_tpu_torch.ops.cuda.segment_reduce_kernel import (
+        segment_reduce)
     from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm
     from graph_hscn_tpu_torch.ops.fused_gcn import (fused_gcn_bwd,
                                                     fused_gcn_fwd)
     return (csr_spmm, edge_sddmm, fused_gcn_fwd, fused_gcn_bwd, spmm_mh,
-            sddmm_mh)
+            sddmm_mh, segment_reduce)
 
 
 def train_run(path: Path, expected) -> dict:
@@ -584,6 +836,14 @@ def voc_gat_launches(cfg, steps, evals):
             "sddmm_mh": 3 * layers * steps + 2 * layers * evals}
 
 
+def voc_gatedgcn_launches(cfg, steps, evals):
+    """The sparse GatedGCN, a layer: forward 2 segment_reduce (the two
+    segment sums); backward 3 (the three edge gathers; the segment sums'
+    backward is a plain gather)."""
+    layers = cfg.mpnn.num_layers
+    return {"segment_reduce": 5 * layers * steps + 2 * layers * evals}
+
+
 def fused_launches(cfg, steps, evals):
     return {"fused_gcn_fwd": steps + evals, "fused_gcn_bwd": steps}
 
@@ -638,7 +898,8 @@ def phase_profile(path: Path, label: str):
     batches = list(dm.train_batches(epoch_seed=dm.seed))
     model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
                        readout="none",
-                       generator=torch.Generator().manual_seed(0)).cuda()
+                       generator=torch.Generator().manual_seed(0),
+                       num_edge_features=dm.num_edge_features).cuda()
     opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
                           cfg.optim.lr, cfg.optim.weight_decay)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -669,7 +930,8 @@ def phase_reference(path: Path):
                        with_spmm_plan=True)
     model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
                        readout="none",
-                       generator=torch.Generator().manual_seed(1))
+                       generator=torch.Generator().manual_seed(1),
+                       num_edge_features=dm.num_edge_features)
     model.eval()
     outs = {}
     prev = spmm.get_backend()
@@ -681,8 +943,13 @@ def phase_reference(path: Path):
             logits = m(b)
             loss, _ = criterion("softmax_cross_entropy", logits, b.node_y,
                                 b.node_mask)
-            grads = torch.autograd.grad(loss, list(m.parameters()))
-            outs[dev] = [logits.detach()] + list(grads)
+            params = list(m.parameters())
+            # A parameter the loss does not reach (the last GatedGCN
+            # layer's edge LayerNorm) has a zero gradient.
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            outs[dev] = [logits.detach()] + [
+                torch.zeros_like(q) if g is None else g
+                for q, g in zip(params, grads)]
     finally:
         spmm.set_backend(prev)
     worst = 0.0
@@ -724,7 +991,8 @@ def peptides_setup(path: Path, fused: bool):
                               dropout=cfg.mpnn.dropout, generator=gen)
     else:
         model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                           compat=cfg.compat.double_relu, generator=gen)
+                           compat=cfg.compat.double_relu, generator=gen,
+                           num_edge_features=dm.num_edge_features)
     return cfg, dm, ds, model.cuda()
 
 
@@ -979,25 +1247,33 @@ def main() -> int:
         fail("PyTorch is not installed")
     name, count, smi = phase_device()
     phase_build()
-    kernels = phase_kernels() + phase_fused_kernels() + phase_gat_kernels()
+    kernels = (phase_kernels() + phase_fused_kernels() + phase_gat_kernels()
+               + phase_gatedgcn_kernels())
+    phase_hbm()
     # Each path's launches, counted from its own run alone.
     launches = train_run(CONFIG, voc_gcn_launches)
     train_run(PEPTIDES, no_launches)
     fused = train_run(PEPTIDES_FUSED, fused_launches)
     gat = train_run(VOC_GAT, voc_gat_launches)
     train_run(PEPTIDES_GAT, no_launches)
+    gated = train_run(VOC_GATED, voc_gatedgcn_launches)
+    train_run(PEPTIDES_GATED, no_launches)
     for k in ("fused_gcn_fwd", "fused_gcn_bwd"):
         launches[k] = fused[k]
     for k in ("spmm_mh", "sddmm_mh"):
         launches[k] = gat[k]
+    launches["segment_reduce"] = gated["segment_reduce"]
     phase_profile(CONFIG, "VOC sparse GCN")
     phase_profile_peptides(PEPTIDES, "peptides unfused GCN")
     phase_profile_peptides(PEPTIDES_FUSED, "peptides fused GCN", fused=True)
     phase_profile(VOC_GAT, "VOC sparse GAT")
     phase_profile_peptides(PEPTIDES_GAT, "peptides dense GAT")
+    phase_profile(VOC_GATED, "VOC sparse GatedGCN")
+    phase_profile_peptides(PEPTIDES_GATED, "peptides-struct GatedGCN")
     phase_reference(CONFIG)
     phase_reference_fused()
     phase_reference(VOC_GAT)
+    phase_reference(VOC_GATED)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -129,5 +129,11 @@ class DataModule:
         self.slot_nodes = slot
         return True
 
+    @property
+    def num_edge_features(self) -> int | None:
+        """The width of the graphs' edge features, or None without them."""
+        attr = self.graphs[0].edge_attr
+        return None if attr is None else int(attr.shape[1])
+
     def max_nodes_per_graph(self) -> int:
         return max(g.num_nodes for g in self.graphs)

@@ -185,3 +185,25 @@ def split_indices(num_graphs: int, seed: int = 42,
         "val": np.sort(idx[n_train:n_train + n_val]),
         "test": np.sort(idx[n_train + n_val:]),
     }
+
+
+def lattice_edges(side: int
+                  ) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """One side x side 4-neighbour lattice, both directions of each edge
+    (the giant graph of scripts/giant_graph_bench.py, without its
+    locality reorder: nodes row-major), receiver-sorted, padded to a
+    multiple of 128 edge slots as the batcher pads.
+
+    Returns (N, senders, receivers, edge_mask); padding edges self-loop on
+    node N-1 and are masked."""
+    n = side * side
+    idx = np.arange(n).reshape(side, side)
+    pairs = ((idx[:, :-1], idx[:, 1:]), (idx[:-1, :], idx[1:, :]))
+    snd = np.concatenate([a.ravel() for p in pairs for a in (p[0], p[1])])
+    rcv = np.concatenate([b.ravel() for p in pairs for b in (p[1], p[0])])
+    order = np.argsort(rcv, kind="stable")
+    pad = (-snd.size) % 128
+    fill = np.full(pad, n - 1)
+    mask = np.concatenate([np.ones(snd.size, bool), np.zeros(pad, bool)])
+    return (n, np.concatenate([snd[order], fill]).astype(np.int32),
+            np.concatenate([rcv[order], fill]).astype(np.int32), mask)

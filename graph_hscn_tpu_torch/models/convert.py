@@ -6,7 +6,9 @@ and ``convs.i.bias``.  A GAT ``MPNN`` keeps ``GATConv_i`` with
 ``kernel_src`` [in, H*C], ``att_src`` and ``att_dst`` [1, H, C] and
 ``bias``; the port keeps ``convs.i.weight`` [H*C, in], ``att_src``,
 ``att_dst`` and ``bias``.  A flax ``FusedDenseGCN`` keeps ``kernel_i`` [in,
-out] and ``bias_i``, and so does the port's.  With the weights carried
+out] and ``bias_i``, and so does the port's.  A flax ``GatedGCNNet``
+keeps numbered ``Dense_k`` and ``GatedGCNConv_i`` modules, which
+:func:`gatedgcn_params_from_jax` names.  With the weights carried
 across, both packages compute the same function, which is how the tests
 hold one against the other.
 """
@@ -39,6 +41,71 @@ def mpnn_params_from_jax(params) -> dict[str, torch.Tensor]:
                 state[prefix + leaf] = torch.from_numpy(value.copy())
             else:
                 raise ValueError(f"unexpected flax param {name}/{leaf}")
+    return state
+
+
+def _dense(prefix: str, leaves) -> dict[str, torch.Tensor]:
+    """A flax Dense's kernel [in, out] and bias as the port's ``Dense``
+    weight [out, in] and bias."""
+    if set(leaves) != {"kernel", "bias"}:
+        raise ValueError(f"unexpected flax Dense params {sorted(leaves)}")
+    kernel = np.asarray(leaves["kernel"], dtype=np.float32)
+    return {prefix + "weight": torch.from_numpy(kernel.T.copy()),
+            prefix + "bias": torch.from_numpy(
+                np.asarray(leaves["bias"], dtype=np.float32).copy())}
+
+
+def gated_gcn_conv_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax GatedGCNConv params -> the port GatedGCNConv's ``state_dict``:
+    ``Dense_0`` .. ``Dense_4`` are A .. E, ``LayerNorm_0`` is x's
+    (``norm_x``) and ``LayerNorm_1`` e's (``norm_e``)."""
+    state = {}
+    for name, leaves in params.items():
+        if (m := re.fullmatch(r"Dense_([0-4])", name)) is not None:
+            state.update(_dense("ABCDE"[int(m.group(1))] + ".", leaves))
+        elif name in ("LayerNorm_0", "LayerNorm_1"):
+            norm = "norm_x." if name == "LayerNorm_0" else "norm_e."
+            for leaf in ("scale", "bias"):
+                state[norm + leaf] = torch.from_numpy(np.asarray(
+                    leaves[leaf], dtype=np.float32).copy())
+        else:
+            raise ValueError(f"unexpected flax module {name!r} in a "
+                             "GatedGCNConv")
+    return state
+
+
+def gatedgcn_params_from_jax(params, edge_encoder: bool
+                             ) -> dict[str, torch.Tensor]:
+    """flax GatedGCNNet params -> the port GatedGCNNet's ``state_dict``.
+
+    flax numbers the net's Dense layers in the order they are created:
+    ``Dense_0`` the node encoder, ``Dense_1`` the edge encoder only when
+    the batch has ``edge_feat`` (``edge_encoder``), then the head's one
+    (readout "none") or two (mean readout) layers; ``GatedGCNConv_i`` is
+    ``layers.i``."""
+    params = params.get("params", params)
+    dense = sorted((int(m.group(1)), name) for name in params
+                   if (m := re.fullmatch(r"Dense_(\d+)", name)))
+    names = ["encoder"] + (["edge_encoder"] if edge_encoder else [])
+    head = len(dense) - len(names)
+    if head not in (1, 2):
+        raise ValueError(f"{len(dense)} flax Dense layers do not fit a "
+                         "GatedGCNNet head of 1 or 2 "
+                         + ("with" if edge_encoder else "without")
+                         + " an edge encoder")
+    names += ["head"] if head == 1 else ["pool_dense", "head"]
+    state = {}
+    for (_, flax_name), name in zip(dense, names):
+        state.update(_dense(name + ".", params[flax_name]))
+    for name, leaves in params.items():
+        if re.fullmatch(r"Dense_\d+", name):
+            continue
+        m = re.fullmatch(r"GatedGCNConv_(\d+)", name)
+        if m is None:
+            raise ValueError(f"unexpected flax module {name!r} in a "
+                             "GatedGCNNet")
+        state.update({f"layers.{int(m.group(1))}.{k}": v for k, v in
+                      gated_gcn_conv_params_from_jax(leaves).items()})
     return state
 
 

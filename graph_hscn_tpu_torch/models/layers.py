@@ -20,8 +20,9 @@ from torch import nn
 
 from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (SpmmMhFunction,
                                                             gat_edge_logits)
-from graph_hscn_tpu_torch.ops.segment import (segment_max, segment_softmax,
-                                              segment_sum)
+from graph_hscn_tpu_torch.ops.segment import (gather_planned, segment_max,
+                                              segment_softmax, segment_sum,
+                                              segment_sum_planned)
 from graph_hscn_tpu_torch.ops.spmm import (gather_scatter, gcn_norm_weights,
                                            kernel_enabled)
 
@@ -296,6 +297,97 @@ class GATConv(nn.Module):
         alpha = exp_e / denom[receivers].clamp_min(1e-16)
         alpha_self = exp_self / denom.clamp_min(1e-16)
         return aggregate(alpha) + h * alpha_self[..., None]
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` (glorot-uniform kernel, zero bias): ``weight``
+    [out, in], computed in ``dtype`` when it is given (params stay
+    float32)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        glorot_uniform_(self.weight, generator)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*promote_dtype(x, self.weight, self.bias,
+                                       dtype=self.dtype))
+
+
+LAYER_NORM_EPS = 1e-6   # flax's default; torch's is 1e-5
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: epsilon ``LAYER_NORM_EPS``,
+    ``scale`` and ``bias``, statistics in float32; the result in ``dtype``,
+    or float32 when it is None."""
+
+    def __init__(self, features: int, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.scale.shape, self.scale,
+                            self.bias, LAYER_NORM_EPS).to(
+                                self.dtype or torch.float32)
+
+
+class GatedGCNConv(nn.Module):
+    """GatedGCN (Bresson & Laurent), the JAX layer's (layers.py:418-479):
+        e'_ij = C e_ij + D x_i + E x_j
+        eta_ij = sigmoid(e'_ij) / (sum_j' sigmoid(e'_ij') + eps)
+        x'_i = A x_i + sum_j eta_ij * (B x_j)
+    then LayerNorm on x' and e', relu, the residuals, and e' zeroed on
+    padding edges (eps = 1e-6).  Returns (x', e').  Node and edge states go
+    in and come out ``features`` wide, as in the JAX GatedGCNNet, where the
+    widths always match; the JAX layer's other widths (no residual) and its
+    ``residual=False, norm="none"`` serve only its GPS, a later slice of
+    the port.
+
+    With a CSR plan and the backend allowing it, the two segment sums and
+    the backwards of the three edge gathers run the ``segment_reduce``
+    kernel (``segment_sum_planned``, ``gather_planned``): 2 launches a
+    layer forward, 3 backward.  Zeroing e' on padding edges is what keeps
+    ``gather_planned``'s contract (zero cotangents there).
+
+    Parameters: ``A`` .. ``E`` (flax ``Dense_0`` .. ``Dense_4``),
+    ``norm_x`` and ``norm_e`` (``LayerNorm_0``, ``LayerNorm_1``).
+    """
+
+    EPS = 1e-6
+
+    def __init__(self, features: int, dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        for name in "ABCDE":
+            setattr(self, name, Dense(features, features, dtype, generator))
+        self.norm_x = LayerNorm(features, dtype=dtype)
+        self.norm_e = LayerNorm(features, dtype=dtype)
+
+    def forward(self, x, edge_feat, senders, receivers, edge_mask,
+                num_nodes=None, plan=None):
+        n = num_nodes or x.shape[0]
+        if self.dtype is not None:
+            x, edge_feat = x.to(self.dtype), edge_feat.to(self.dtype)
+        mask = edge_mask[:, None]
+        e_new = (self.C(edge_feat)
+                 + gather_planned(self.D(x), receivers, plan)
+                 + gather_planned(self.E(x), senders, plan, side="sender"))
+        sig = torch.where(mask, torch.sigmoid(e_new), 0.0)
+        denom = segment_sum_planned(sig, receivers, n, plan)
+        msgs = sig * gather_planned(self.B(x), senders, plan, side="sender")
+        agg = segment_sum_planned(msgs, receivers, n, plan)
+        x_new = self.A(x) + agg / (denom + self.EPS)
+        x_new = x + torch.relu(self.norm_x(x_new))
+        e_new = edge_feat + torch.relu(self.norm_e(e_new))
+        return x_new, torch.where(mask, e_new, 0.0)
 
 
 ACTIVATIONS: dict[str, Callable] = {

@@ -1,7 +1,8 @@
 """MPNN baselines: the counterpart of ``graph_hscn_tpu/models/mpnn.py`` (the
 reference's MPNN, mpnn.py:13-76), GCN and GAT stacks: sparse batches
 through the CSR kernels or plain gathers, slotted batches through
-per-graph dense adjacencies.
+per-graph dense adjacencies.  ``build_mpnn`` also builds the GatedGCN
+family (``models/gatedgcn.py``), as the JAX one does.
 
 Structure per the reference:
   layer 0:   conv(F -> H)
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
+from graph_hscn_tpu_torch.models.gatedgcn import GatedGCNNet
 from graph_hscn_tpu_torch.models.layers import (ACTIVATIONS, GATConv,
                                                GCNConv, dropout)
 from graph_hscn_tpu_torch.ops.dense import resolve_dense_adj
@@ -99,9 +101,24 @@ class MPNN(nn.Module):
 
 def build_mpnn(model_cfg, num_features: int, num_classes: int,
                compat: bool = True, readout: str = "mean", dtype=None,
-               generator: torch.Generator | None = None) -> MPNN:
-    """Mirror of the JAX ``build_mpnn``, its GCN and GAT branches; the
-    other conv types are later slices of the port."""
+               generator: torch.Generator | None = None,
+               num_edge_features: int | None = None) -> nn.Module:
+    """Mirror of the JAX ``build_mpnn``, its GCN, GAT and GatedGCN
+    branches; the other conv types are later slices of the port.
+    ``num_edge_features``: the width of the batches' edge features (None
+    without them), which only the GatedGCN branch reads."""
+    if model_cfg.conv_type.lower() == "gatedgcn":
+        return GatedGCNNet(
+            num_features=num_features,
+            hidden_channels=model_cfg.hidden_channels,
+            num_classes=num_classes,
+            num_layers=model_cfg.num_layers,
+            dropout=model_cfg.dropout,
+            readout=readout,
+            dtype=dtype,
+            num_edge_features=num_edge_features,
+            generator=generator,
+        )
     if model_cfg.conv_type.lower() not in ("gcn", "gat"):
         raise NotImplementedError(
             f"conv_type {model_cfg.conv_type!r}: ROADMAP queue A, item 8")

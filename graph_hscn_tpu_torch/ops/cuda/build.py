@@ -46,6 +46,8 @@ SIGNATURES = {
     # row, col, h_src, src_bf16, h_dst, dst_bf16, out, n_edges, n_real,
     # heads, c, stream
     "sddmm_mh": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # row_ptr, order (or null), msgs, msgs_bf16, out, n_rows, f, stream
+    "segment_reduce": (_P, _P, _P, _I, _P, _I, _I, _P),
     # a_hat, x, bf16, w[], b[], bits[], out[], dims[], num_layers, graphs,
     # slot, mode, thr, scale, seed, stream
     "fused_gcn_fwd": (_P, _P, _I, _PP, _PP, _PP, _PP, _IP, _I, _I, _I, _I,

@@ -1,9 +1,9 @@
 """Experiment runner: config -> data -> model -> training.
 
 The counterpart of ``graph_hscn_tpu/runner.py`` (the reference's
-run_train, main.py:85-120), single-device MPNN path: the GCN or GAT ``MPNN``
-or the fused ``FusedDenseGCN``, trained by the host loop ``fit`` or the
-device-resident ``fit_device``.  Execution paths are routed as in the JAX
+run_train, main.py:85-120), single-device MPNN path: the GCN or GAT
+``MPNN``, ``GatedGCNNet`` or the fused ``FusedDenseGCN``, trained by the
+host loop ``fit`` or the device-resident ``fit_device``.  Execution paths are routed as in the JAX
 package (runner.py:49-61, :120-138 and :212-238); the paths of later slices
 raise ``NotImplementedError`` naming their ROADMAP item, so no config falls
 through to a path it did not ask for.
@@ -117,7 +117,8 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
     else:
         model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
                            compat=cfg.compat.double_relu, readout=readout,
-                           dtype=compute_dtype, generator=init_gen)
+                           dtype=compute_dtype, generator=init_gen,
+                           num_edge_features=dm.num_edge_features)
         if compute_dtype is not None:
             logger.info(f"Mixed precision: {cfg.runtime.compute_dtype} "
                         "compute, f32 params/logits.")

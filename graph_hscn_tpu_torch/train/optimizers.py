@@ -77,6 +77,13 @@ class Optimizer:
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        # optax updates every leaf: a parameter the loss does not reach (the
+        # last GatedGCN layer's edge LayerNorm) gets a zero gradient, so its
+        # weight decay still applies, where torch would skip it.
+        for group in self.opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         if self.clip:
             clip_grad_norm((p for g in self.opt.param_groups
                             for p in g["params"]), 1.0)

@@ -17,6 +17,8 @@ same points (products of bfloat16 values are exact in float32, so most sums
 agree bit for bit), while a kernel that leaves out one rounding point (y,
 dz, dy or the stored hidden outputs) fails it (tests/test_torch_fused_gcn.py,
 test_bf16_tolerance_catches_a_missing_rounding_point).
+segment_reduce in bfloat16 is held at rtol=1e-4, atol=1e-4*max|ref|: both
+sum the same exact bfloat16 values in float32, in another order.
 """
 
 import numpy as np
@@ -24,8 +26,9 @@ import pytest
 import torch
 
 from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch
-from graph_hscn_tpu_torch.data.synthetic import make_voc_superpixels
-from graph_hscn_tpu_torch.ops import spmm
+from graph_hscn_tpu_torch.data.synthetic import (lattice_edges,
+                                                  make_voc_superpixels)
+from graph_hscn_tpu_torch.ops import segment, spmm
 from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import (edge_sddmm,
                                                         edge_sddmm_plain)
 from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (SpmmMhFunction,
@@ -34,7 +37,10 @@ from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (SpmmMhFunction,
                                                             sddmm_mh_plain,
                                                             spmm_mh,
                                                             spmm_mh_plain)
-from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm, csr_spmm_plain
+from graph_hscn_tpu_torch.ops.cuda.segment_reduce_kernel import (
+    segment_reduce, segment_reduce_plain)
+from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import (csr_plan, csr_spmm,
+                                                       csr_spmm_plain)
 from graph_hscn_tpu_torch.ops.fused_gcn import (dropout_bits_plain,
                                                 dropout_threshold,
                                                 folded_operator,
@@ -437,3 +443,149 @@ def test_run_experiment_peptides_on_the_card(config, fused):
     assert steps > 0 and evals > 0
     assert fused_gcn_fwd.launches - f0 == (steps + evals if fused else 0)
     assert fused_gcn_bwd.launches - b0 == (steps if fused else 0)
+
+
+@pytest.mark.parametrize("f", [64, 21, 128, 130, 1])
+@pytest.mark.parametrize("side", ["receiver", "sender"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_reduce_matches_plain(batch, f, side, dtype):
+    """The receiver side (row_ptr over the edges in their order) and the
+    sender side (t_row_ptr, rows taken in t_order) at GatedGCN's width (64)
+    and others (odd, past one 128-feature pass, 1); padding edge rows hold
+    NaN, which the kernel never reads; padding nodes are empty rows (0)."""
+    need_card()
+    p = batch.spmm.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    msgs = torch.randn(p.col.numel(), f, device="cuda", generator=gen)
+    msgs[p.num_edges:] = float("nan")
+    msgs = msgs.to(dtype)
+    rp, order = ((p.row_ptr, None) if side == "receiver"
+                 else (p.t_row_ptr, p.t_order))
+    before = segment_reduce.launches
+    out = segment_reduce(msgs, rp, order)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (p.num_nodes, f)
+    assert out.isfinite().all()
+    assert_close(out, segment_reduce_plain(msgs, rp, order),
+                 1e-5 if dtype == torch.float32 else 1e-4)
+    assert not out[~torch.as_tensor(batch.node_mask, device="cuda")].any()
+
+
+def test_segment_reduce_empty_rows_and_offsets():
+    """A CSR with many empty rows (every third row, and a run of 50 at the
+    end) on a view of the messages that starts past an aligned address
+    (scalar loads): the kernel writes 0 there and agrees elsewhere."""
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    counts = torch.randint(0, 6, (1000,), device="cuda", generator=gen)
+    counts[::3] = 0
+    counts[-50:] = 0
+    rp = torch.zeros(1001, dtype=torch.int32, device="cuda")
+    rp[1:] = counts.cumsum(0).to(torch.int32)
+    e = int(rp[-1])
+    base = torch.randn(e + 1, 64, device="cuda", generator=gen)
+    for msgs in (base[:e], base.view(-1)[1:e * 64 + 1].view(e, 64)):
+        out = segment_reduce(msgs, rp)
+        torch.cuda.synchronize()
+        assert_close(out, segment_reduce_plain(msgs, rp))
+        assert not out[counts == 0].any()
+
+
+def test_planned_segment_ops_grads_match_cpu(batch):
+    """segment_sum_planned and gather_planned (both sides) on the card
+    (kernel) against the CPU (plain version): outputs and gradients."""
+    need_card()
+    n, e = batch.num_nodes_padded, batch.num_edges_padded
+    rng = np.random.default_rng(6)
+    x0 = torch.tensor(rng.normal(size=(n, 64)).astype(np.float32))
+    m0 = torch.tensor((rng.normal(size=(e, 64))
+                       * batch.edge_mask[:, None]).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(n, 64)).astype(np.float32))
+    ge = torch.tensor((rng.normal(size=(e, 64))
+                       * batch.edge_mask[:, None]).astype(np.float32))
+    prev = spmm.get_backend()
+    spmm.set_backend("pallas")
+    try:
+        res = {}
+        for dev in ("cpu", "cuda"):
+            b = batch.to(dev)
+            m = m0.to(dev, copy=True).requires_grad_()
+            x = x0.to(dev, copy=True).requires_grad_()
+            out = segment.segment_sum_planned(m, b.receivers, n, plan=b.spmm)
+            out.backward(g.to(dev))
+            gr = segment.gather_planned(x, b.receivers, plan=b.spmm)
+            gs = segment.gather_planned(x, b.senders, plan=b.spmm,
+                                        side="sender")
+            (gr * ge.to(dev)).sum().add((gs * ge.to(dev)).sum()).backward()
+            res[dev] = (out, m.grad, gr, gs, x.grad)
+    finally:
+        spmm.set_backend(prev)
+    for got, ref in zip(res["cuda"], res["cpu"]):
+        assert_close(got, ref)
+
+
+def test_segment_reduce_refuses_what_the_kernel_does_not_take(batch):
+    need_card()
+    p = batch.spmm.to("cuda")
+    m = torch.randn(p.col.numel(), 8, device="cuda")
+    with pytest.raises(TypeError):
+        segment_reduce(m.double(), p.row_ptr)
+    with pytest.raises(TypeError):
+        segment_reduce(m, p.row_ptr.long())
+    with pytest.raises(TypeError, match="order"):
+        segment_reduce(m, p.t_row_ptr, p.t_order.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_reduce(torch.randn(8, p.col.numel(), device="cuda").t(),
+                       p.row_ptr)
+
+
+def test_run_experiment_gatedgcn_on_the_card_launches_the_kernel():
+    """The VOC GatedGCN config, shrunk to 2 layers: a train step launches
+    5 segment_reduce a layer, an eval batch 2."""
+    need_card()
+    from pathlib import Path
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.runner import run_experiment
+    cfg = load_config(Path(__file__).parents[1] / "configs" / "GatedGCN"
+                      / "voc_superpixels_GatedGCN_sparse.yaml")
+    cfg.data.num_graphs = 48
+    cfg.mpnn.num_layers = 2
+    cfg.training.epochs = 1
+    before = segment_reduce.launches
+    result = run_experiment(cfg)
+    assert np.isfinite(result.history[0]["train_loss"])
+    steps, evals = result.num_train_steps, result.num_eval_batches
+    assert steps > 0 and evals > 0
+    assert segment_reduce.launches - before == 2 * (5 * steps + 2 * evals)
+
+
+@pytest.fixture(scope="module")
+def lattice():
+    """The 142 x 142 lattice (N = 20,164, 80,088 edges), the size at which
+    the TPU routes the SpMM to its HBM-streamed kernel (B4a)."""
+    n, snd, rcv, mask = lattice_edges(142)
+    return csr_plan(snd, rcv, mask, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csr_spmm_and_edge_sddmm_at_the_hbm_size(lattice, dtype):
+    """csr_spmm forward and transpose and edge_sddmm at F = 128 on the
+    142 x 142 lattice, against their plain versions."""
+    need_card()
+    p = lattice.to("cuda")
+    n = p.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(n, 128, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(n, 128, device="cuda", generator=gen)
+    w = torch.rand(p.col.numel(), device="cuda", generator=gen)
+    for rp, col, ww in ((p.row_ptr, p.col, w),
+                        (p.t_row_ptr, p.t_col, w[p.t_order].contiguous())):
+        out = csr_spmm(x, rp, col, ww)
+        torch.cuda.synchronize()
+        assert_close(out, csr_spmm_plain(x, rp, col, ww))
+    dots = edge_sddmm(x, g, p.row, p.col, p.num_edges)
+    torch.cuda.synchronize()
+    assert_close(dots, edge_sddmm_plain(x, g, p.row, p.col, p.num_edges))
+    assert not dots[p.num_edges:].any()

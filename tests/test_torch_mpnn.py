@@ -178,13 +178,29 @@ def test_gelu_is_the_tanh_form():
 
 @pytest.mark.parametrize("conv_type", ["gat", "gin", "gatedgcn", "gps"])
 def test_build_mpnn_other_convs_are_later_slices(conv_type):
-    """GIN, GatedGCN and GPS are later slices.  GAT builds; of it only the
-    bipartite call (HSCN's local->virtual relation) is a later slice."""
+    """GIN and GPS are later slices.  GAT builds; of it only the bipartite
+    call (HSCN's local->virtual relation) is a later slice.  GatedGCN
+    builds its GatedGCNNet (with an edge encoder for edge features) and
+    runs a forward on a peptides-struct batch."""
     from graph_hscn_tpu_torch.config.config import MPNNConfig
+    from graph_hscn_tpu_torch.models.gatedgcn import GatedGCNNet
     cfg = MPNNConfig(conv_type=conv_type, activation="relu", num_heads=1)
-    if conv_type != "gat":
+    if conv_type in ("gin", "gps"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_mpnn(cfg, 9, 10)
+        return
+    if conv_type == "gatedgcn":
+        model = build_mpnn(cfg, 9, 11, num_edge_features=3)
+        assert isinstance(model, GatedGCNNet)
+        assert len(model.layers) == cfg.num_layers
+        assert model.edge_encoder.weight.shape == (cfg.hidden_channels, 3)
+        graphs = js.make_peptides_struct(num_graphs=3, seed=5,
+                                         mean_nodes=20.0)
+        batch = tb.pack_batch(graphs, tb.PadBudget.for_dataset(graphs, 3)
+                              ).to("cpu")
+        out = model(batch)
+        assert out.shape == (batch.num_graphs_padded, 11)
+        assert torch.isfinite(out).all()
         return
     conv = build_mpnn(cfg, 9, 10).convs[0]
     x, idx = torch.zeros(3, 9), torch.zeros(1, dtype=torch.long)

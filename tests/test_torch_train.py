@@ -169,7 +169,8 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("path,change,match", [
     ("GIN/peptides_func_GIN.yaml", {}, "conv_type"),
-    ("GatedGCN/peptides_struct_GatedGCN.yaml", {}, "conv_type"),
+    ("GatedGCN/peptides_struct_GatedGCN.yaml", {"mpnn.conv_type": "gps"},
+     "conv_type"),
     ("GCN/peptides_func_GCN_dp8.yaml", {}, "mesh"),
     ("GCN/peptides_func_GCN_PE.yaml", {}, "positional encodings"),
     ("HSCN/peptides_func_HSCN.yaml", {}, "HSCN"),
