@@ -15,8 +15,12 @@ Phases; any failure exits non-zero:
                  batch (N=9784, F=64 and 21, float32 and bfloat16);
                - fused_gcn_fwd/bwd at the peptides batch (G=32 graphs, slot
                  392, 9 -> 16 -> 16 -> 10, float32 and bfloat16, no dropout,
-                 given bits and the seeded Philox stream), beside the
-                 unfused dense stack (torch.bmm) as a yardstick;
+                 given bits and the seeded Philox stream), each launch
+                 plan with cudaOccupancyMaxActiveClusters, timed warm and
+                 cold, beside the unfused dense stack (torch.bmm) as a
+                 yardstick; then at S=512, hidden 128, 5 layers, and at
+                 S=1024 with input width 64 (A_hat streamed, x read from
+                 global memory); the backward twice, bit for bit;
                - spmm_mh and sddmm_mh at the VOC GAT batch (N=19048, 72832
                  edge slots): spmm_mh forward and transpose at H*C = 64, 84
                  and 8, sddmm_mh at C = 16 (float32, bfloat16, bfloat16 with
@@ -271,7 +275,8 @@ def phase_device():
     return name, count, smi
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Build every kernel; returns {kernel: nvcc's output (ptxas -v)}."""
     from graph_hscn_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     results = build.build_all()
@@ -281,6 +286,7 @@ def phase_build():
         print(f"[build] {r.name}: {r.seconds:.2f} s -> {r.path.name}")
         for line in r.log.strip().splitlines():
             print(f"[build]   {line}")
+    return {r.name: r.log for r in results}
 
 
 def warm_up_card(seconds: float = 1.0) -> None:
@@ -1021,9 +1027,147 @@ def fused_bound(G: int, S: int, dims: list, esize: int, direction: str,
     return bound_ms(nbytes, ops)
 
 
-def phase_fused_kernels():
+def fused_error(label: str, got, ref, f32: bool) -> float:
+    """The fused kernels' criterion, as tests/test_torch_cuda.py applies it:
+    ``got`` finite and max |got - ref| <= tol * max|ref|, tol 1e-5 in
+    float32 and 1e-4 in bfloat16, ``ref`` from the plain version as
+    ops/fused_gcn.py:plain_reference runs it.  Fails the run otherwise;
+    returns the error over tol."""
+    tol = (1e-5 if f32 else 1e-4) * max(float(ref.float().abs().max()), 1e-6)
+    err = float((got.float() - ref.float()).abs().max())
+    if not got.isfinite().all() or err > tol:
+        fail(f"{label}: max |err| {err:.3e} > tolerance {tol:.3e}")
+    return err / tol
+
+
+def cublas_sums_in_order(a_hat, y, w) -> tuple[bool, bool]:
+    """Whether cuBLAS, in the plain versions, sums in the kernels' order on
+    these operands (rounded to bfloat16, whose products are exact): the
+    A_hat products (torch.bmm, A_hat y and A_hat^T y) and the small ones
+    (torch.matmul, y w), each bit for bit against ProductsInOrder."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.fused_gcn import ProductsInOrder
+    a, y, w = (t.to(torch.bfloat16).float() for t in (a_hat, y, w))
+    pairs = [(torch.bmm, a, y), (torch.bmm, a.transpose(1, 2), y),
+             (torch.matmul, y, w)]
+    same = []
+    for fn, u, v in pairs:
+        with ProductsInOrder():
+            in_order = fn(u, v)
+        same.append(torch.equal(fn(u, v), in_order))
+    return same[0] and same[1], same[2]
+
+
+def fused_plans(G: int, S: int, dims: list) -> None:
+    """Print both kernels' launch plans for a shape, each with how many of
+    its clusters the card holds at once."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.fused_gcn import (fused_plan,
+                                                    max_active_clusters)
+    for dtype in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            plan = fused_plan(G, S, dims, dtype, backward)
+            n = max_active_clusters(plan, dtype, backward)
+            print(f"[fused] plan {'bwd' if backward else 'fwd'} "
+                  f"{str(dtype).replace('torch.', ''):8s} G={G} S={S} "
+                  f"widths {dims}: clusters of {plan.cluster} ({plan.blocks} "
+                  f"blocks), {plan.rows} "
+                  f"{'columns' if backward else 'rows'} a block, A_hat "
+                  f"{'resident' if plan.resident else 'streamed'}, jt "
+                  f"{plan.jt}, fc {plan.fc}, {plan.smem} shared bytes a "
+                  f"block; cudaOccupancyMaxActiveClusters {n}", flush=True)
+
+
+def phase_fused_wide():
+    """Both fused kernels against their plain versions at two more plans:
+    S=512, hidden 128, 5 layers (configs/GCN/peptides_func_GCN_dp8.yaml's
+    widths on the largest dense slot, G=32), and S=1024 with an input
+    width of 64 (G=2), whose A_hat slice is streamed in tiles and whose x
+    the forward reads from global memory; random graphs of ~2 edges a
+    node, float32 and bfloat16, all three dropout modes; the backward
+    twice, equal bit for bit.  Prints the first shape's float32 seeded
+    warm times."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.fused_gcn import (folded_operator,
+                                                    fused_gcn_bwd,
+                                                    fused_gcn_bwd_plain,
+                                                    fused_gcn_fwd,
+                                                    fused_gcn_fwd_plain,
+                                                    plain_reference)
+    for G, S, dims, timed in ((32, 512, [9, 128, 128, 128, 128, 10], True),
+                              (2, 1024, [64, 16, 10], False)):
+        fused_plans(G, S, dims)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        adj = torch.rand(G, S, S, device="cuda", generator=gen) < 2.0 / S
+        adj = (adj | adj.transpose(1, 2)).float()
+        g_out = torch.randn(G, S, dims[-1], device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            name = str(dtype).replace("torch.", "")
+            a_hat = folded_operator(adj).to(dtype).contiguous()
+            x = torch.randn(G, S, dims[0], device="cuda",
+                            generator=gen).to(dtype)
+            ws = [(0.15 * torch.randn(dims[i], dims[i + 1], device="cuda",
+                                      generator=gen)).to(dtype)
+                  for i in range(len(dims) - 1)]
+            bs = [0.1 * torch.randn(f, device="cuda", generator=gen)
+                  for f in dims[1:]]
+            bits = [torch.randint(-2 ** 31, 2 ** 31, (G, S, f),
+                                  device="cuda", dtype=torch.int32,
+                                  generator=gen) for f in dims[1:-1]]
+            for kind in ("none", "bits", "seed"):
+                r = 0.0 if kind == "none" else 0.1
+                drop = {"none": None, "bits": {"bits": bits},
+                        "seed": {"seed": FUSED_SEED}}[kind]
+                outs = fused_gcn_fwd(a_hat, x, ws, bs, r, drop)
+                refs = plain_reference(fused_gcn_fwd_plain, a_hat, x, ws, bs,
+                                       r, drop)
+                acts = refs[:-1]
+                back = fused_gcn_bwd(a_hat, x, ws, acts, g_out, r)
+                again = fused_gcn_bwd(a_hat, x, ws, acts, g_out, r)
+                back_ref = plain_reference(fused_gcn_bwd_plain, a_hat, x, ws,
+                                           acts, g_out, r)
+                torch.cuda.synchronize()
+                got = [back[0]] + back[1] + back[2]
+                if not all(torch.equal(a, b) for a, b in
+                           zip(got, [again[0]] + again[1] + again[2])):
+                    fail(f"fused_gcn_bwd {name} S={S} widths {dims}: two "
+                         "calls differ")
+                ratio = max(fused_error(
+                    f"fused S={S} widths {dims} {name} dropout {kind}", o, w,
+                    f32) for o, w in zip(
+                        outs + got,
+                        refs + [back_ref[0]] + back_ref[1] + back_ref[2]))
+                rounded = all(torch.equal(o, w) for o, w in
+                              zip(outs + got[:1], refs + [back_ref[0]]))
+                line = (f"[fused] S={S} widths {dims} {name:8s} dropout "
+                        f"{kind:4s}: forward and backward within "
+                        f"{ratio:.3f} of tol {1e-5 if f32 else 1e-4:.0e}"
+                        f"*max|ref|; outputs and dx bit for bit: {rounded}; "
+                        "backward bit-identical twice")
+                if timed and f32 and kind == "seed":
+                    fwd_ms, _ = time_ms(lambda: fused_gcn_fwd(
+                        a_hat, x, ws, bs, r, drop))
+                    bwd_ms, _ = time_ms(lambda: fused_gcn_bwd(
+                        a_hat, x, ws, acts, g_out, r))
+                    fb, _ = fused_bound(G, S, dims, 4, "fwd", False)
+                    bb, _ = fused_bound(G, S, dims, 4, "bwd", False)
+                    line += (f"; device warm: fwd {fwd_ms * 1e3:.2f} us "
+                             f"(bound {fb * 1e3:.2f}), bwd "
+                             f"{bwd_ms * 1e3:.2f} us (bound "
+                             f"{bb * 1e3:.2f})")
+                print(line, flush=True)
+
+
+def phase_fused_kernels(build_logs: dict):
     """The fused GCN stack's two kernels at the peptides batch shape,
-    against their plain versions; returns their records (without launch
+    against their plain versions, timed warm (the same inputs call after
+    call, as in a train step that has just folded A_hat) and cold (input
+    copies spanning 4x the L2); then at two more plans
+    (:func:`phase_fused_wide`).  Returns their records (without launch
     counts)."""
     import torch
 
@@ -1034,9 +1178,14 @@ def phase_fused_kernels():
                                                     fused_gcn_bwd,
                                                     fused_gcn_bwd_plain,
                                                     fused_gcn_fwd,
-                                                    fused_gcn_fwd_plain)
+                                                    fused_gcn_fwd_plain,
+                                                    plain_reference)
     from graph_hscn_tpu_torch.train.device_data import assemble
 
+    for name in ("fused_gcn_fwd", "fused_gcn_bwd"):
+        for line in build_logs.get(name, "").strip().splitlines():
+            if "ptxas" in line or "spill" in line:
+                print(f"[fused] {name} ptxas: {line.strip()}")
     cfg, dm, ds, model = peptides_setup(PEPTIDES_FUSED, fused=True)
     G, S = cfg.data.batch_size, ds.slot
     idx = torch.as_tensor(dm.split_idx["train"][:G], dtype=torch.int32,
@@ -1056,6 +1205,12 @@ def phase_fused_kernels():
     print(f"[fused] peptides batch: G={G} S={S} widths {dims}, "
           f"{int(adj.sum())} edges, {int(batch.node_mask.sum())} nodes",
           flush=True)
+    fused_plans(G, S, dims)
+    bmm_order, matmul_order = cublas_sums_in_order(
+        folded_operator(adj), g_out, params[-1]["kernel"].detach().t())
+    print(f"[fused] cuBLAS sums in the kernels' order at this batch "
+          f"(bfloat16 operands, bit for bit): A_hat products {bmm_order}, "
+          f"small products {matmul_order}", flush=True)
     cases = []
     worst = {"fused_gcn_fwd": 0.0, "fused_gcn_bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1064,8 +1219,9 @@ def phase_fused_kernels():
         x = x32.to(dtype).contiguous()
         ws = [p["kernel"].detach().to(dtype).contiguous() for p in params]
         bs = [p["bias"].detach().float().contiguous() for p in params]
-        # bf16: the same rounding points give the same bf16 values; a
-        # kernel without one of them fails 1e-4 (tests/test_torch_fused_gcn.py
+        # bf16: the reference sums in the kernels' order, so the same
+        # rounding points give the same bf16 values; a kernel without one
+        # of them fails 1e-4 (tests/test_torch_fused_gcn.py
         # test_bf16_tolerance_catches_a_missing_rounding_point).
         tol_rel = 1e-5 if f32 else 1e-4
         for kind in ("none", "bits", "seed"):
@@ -1075,10 +1231,12 @@ def phase_fused_kernels():
             d_plain = {"none": None, "bits": {"bits": bits},
                        "seed": {"seed": FUSED_SEED}}[kind]
             outs = fused_gcn_fwd(a_hat, x, ws, bs, r, d_kernel)
-            refs = fused_gcn_fwd_plain(a_hat, x, ws, bs, r, d_plain)
+            refs = plain_reference(fused_gcn_fwd_plain, a_hat, x, ws, bs, r,
+                                   d_plain)
             acts = refs[:-1]
             back = fused_gcn_bwd(a_hat, x, ws, acts, g_out, r)
-            back_ref = fused_gcn_bwd_plain(a_hat, x, ws, acts, g_out, r)
+            back_ref = plain_reference(fused_gcn_bwd_plain, a_hat, x, ws,
+                                       acts, g_out, r)
             torch.cuda.synchronize()
             errs, ratios = {}, {}
             for name, got, want in (
@@ -1087,12 +1245,9 @@ def phase_fused_kernels():
                      [back_ref[0]] + back_ref[1] + back_ref[2])):
                 e = ratio = 0.0
                 for o, w in zip(got, want):
-                    err = float((o.float() - w.float()).abs().max())
-                    tol = tol_rel * max(float(w.float().abs().max()), 1e-6)
-                    if not o.isfinite().all() or err > tol:
-                        fail(f"{name} {dtype} dropout {kind}: max |err| "
-                             f"{err:.3e} > tolerance {tol:.3e}")
-                    e, ratio = max(e, err), max(ratio, err / tol)
+                    ratio = max(ratio, fused_error(
+                        f"{name} {dtype} dropout {kind}", o, w, f32))
+                    e = max(e, float((o.float() - w.float()).abs().max()))
                 errs[name], ratios[name] = e, ratio
                 if f32:
                     worst[name] = max(worst[name], e)
@@ -1107,33 +1262,52 @@ def phase_fused_kernels():
                     share = float(dropped.float().mean())
                     if abs(share - rate) > 0.01:
                         fail(f"seeded dropout drops {share:.4f}, rate {rate}")
+            again = fused_gcn_bwd(a_hat, x, ws, acts, g_out, r)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    [back[0]] + back[1] + back[2],
+                    [again[0]] + again[1] + again[2])):
+                fail(f"fused_gcn_bwd {dtype} dropout {kind}: two calls "
+                     "differ")
             esize = x.element_size()
-            for name, kern, plain in (
+            n_bits = len(bits) if kind == "bits" else 0
+
+            def fwd_cold(a, xx, *bb, r=r, d=d_kernel):
+                """The forward on copied inputs (given bits copied too)."""
+                return fused_gcn_fwd(a, xx, ws, bs, r,
+                                     {"bits": list(bb)} if bb else d)
+
+            def bwd_cold(a, xx, gg, *hh, r=r):
+                return fused_gcn_bwd(a, xx, ws, list(hh), gg, r)
+
+            for name, kern, cold, plain in (
                     ("fused_gcn_fwd",
                      lambda: fused_gcn_fwd(a_hat, x, ws, bs, r, d_kernel),
+                     rotating(fwd_cold, a_hat, x, *bits[:n_bits]),
                      lambda: fused_gcn_fwd_plain(a_hat, x, ws, bs, r,
                                                  d_plain)),
                     ("fused_gcn_bwd",
                      lambda: fused_gcn_bwd(a_hat, x, ws, acts, g_out, r),
+                     rotating(bwd_cold, a_hat, x, g_out, *acts),
                      lambda: fused_gcn_bwd_plain(a_hat, x, ws, acts, g_out,
                                                  r))):
                 direction = name[-3:]
                 b_ms, b_by = fused_bound(G, S, dims, esize, direction,
                                          kind == "bits")
                 k_ms, k_host = time_ms(kern)
+                cold_ms, _ = time_ms(cold)
                 p_ms, _ = time_ms(plain)
                 case = dict(name=name, dtype=str(dtype).replace("torch.", ""),
                             dropout=kind, max_abs_err=errs[name],
-                            ms=k_ms, plain_ms=p_ms, library_ms=None,
-                            bound_ms=b_ms, bound_by=b_by)
+                            ms=k_ms, cold_ms=cold_ms, plain_ms=p_ms,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by)
                 cases.append(case)
                 print(f"[fused] {name} {case['dtype']:8s} dropout "
                       f"{kind:4s} err {errs[name]:.2e} ({ratios[name]:.3f} "
                       f"of tol {tol_rel:.0e}*max|ref| an output) device: "
-                      f"kernel {k_ms * 1e3:8.2f} us  "
-                      f"plain {p_ms * 1e3:8.2f} us  bound {b_ms * 1e3:6.2f} "
-                      f"us ({b_by}); host a call {k_host * 1e3:6.2f} us",
-                      flush=True)
+                      f"kernel warm {k_ms * 1e3:8.2f} us, cold L2 "
+                      f"{cold_ms * 1e3:8.2f} us  plain {p_ms * 1e3:8.2f} us"
+                      f"  bound {b_ms * 1e3:6.2f} us ({b_by}); host a call "
+                      f"{k_host * 1e3:6.2f} us", flush=True)
     # Yardstick: the unfused dense stack, the MPNN's torch.bmm route, at the
     # same shape in float32 (forward without dropout, and forward+backward).
     convs = []
@@ -1166,6 +1340,16 @@ def phase_fused_kernels():
           "function", flush=True)
     records = {c["name"]: c for c in cases
                if (c["dtype"], c["dropout"]) == ("float32", "seed")}
+    for name, c in records.items():
+        fwd = name == "fused_gcn_fwd"
+        yard = y_fwd if fwd else y_both - y_fwd
+        print(f"[fused] {name} float32 seeded dropout: warm "
+              f"{c['ms'] * 1e3:.2f} us, cold {c['cold_ms'] * 1e3:.2f} us; "
+              f"the yardstick's {'forward' if fwd else 'backward'} "
+              f"{yard * 1e3:.2f} us: "
+              + ("faster" if max(c["ms"], c["cold_ms"]) < yard
+                 else "NOT faster"), flush=True)
+    phase_fused_wide()
     src = "graph_hscn_tpu_torch/csrc/{}.cu"
     pallas = "graph_hscn_tpu/ops/pallas/fused_gcn_kernel.py:{}"
     return [
@@ -1246,9 +1430,9 @@ def main() -> int:
     except ImportError:
         fail("PyTorch is not installed")
     name, count, smi = phase_device()
-    phase_build()
-    kernels = (phase_kernels() + phase_fused_kernels() + phase_gat_kernels()
-               + phase_gatedgcn_kernels())
+    build_logs = phase_build()
+    kernels = (phase_kernels() + phase_fused_kernels(build_logs)
+               + phase_gat_kernels() + phase_gatedgcn_kernels())
     phase_hbm()
     # Each path's launches, counted from its own run alone.
     launches = train_run(CONFIG, voc_gcn_launches)

@@ -49,13 +49,21 @@ SIGNATURES = {
     # row_ptr, order (or null), msgs, msgs_bf16, out, n_rows, f, stream
     "segment_reduce": (_P, _P, _P, _I, _P, _I, _I, _P),
     # a_hat, x, bf16, w[], b[], bits[], out[], dims[], num_layers, graphs,
-    # slot, mode, thr, scale, seed, stream
+    # slot, mode, thr, scale, seed, the plan (cluster, rows, jt, fc,
+    # resident), stream
     "fused_gcn_fwd": (_P, _P, _I, _PP, _PP, _PP, _PP, _IP, _I, _I, _I, _I,
-                      _U32, _F, _P, _P),
+                      _U32, _F, _P, _I, _I, _I, _I, _I, _P),
     # a_hat, x, bf16, w[], act[], g, dx, partial, grads, dims[], num_layers,
-    # graphs, slot, keep_scale, stream
+    # graphs, slot, keep_scale, the plan (as above), stream
     "fused_gcn_bwd": (_P, _P, _I, _PP, _PP, _P, _P, _P, _P, _IP, _I, _I, _I,
-                      _F, _P),
+                      _F, _I, _I, _I, _I, _I, _P),
+}
+# Further entry points of a kernel's library: {library: {function: (argument
+# types)}}, each returning an int.
+EXTRA_FUNCTIONS = {
+    # bf16, cluster, smem -> cudaOccupancyMaxActiveClusters, or -error
+    "fused_gcn_fwd": {"fused_gcn_fwd_max_clusters": (_I, _I, _I)},
+    "fused_gcn_bwd": {"fused_gcn_bwd_max_clusters": (_I, _I, _I)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -142,8 +150,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         (result,) = build_all((name,))
         lib = ctypes.CDLL(str(result.path))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for fname, argtypes in {name: SIGNATURES[name],
+                                **EXTRA_FUNCTIONS.get(name, {})}.items():
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib

@@ -18,8 +18,16 @@ Pieces:
     they launch the kernel or raise, on CPU tensors they run
     :func:`fused_gcn_fwd_plain` / :func:`fused_gcn_bwd_plain`, the same
     functions in plain PyTorch with the TPU kernel's rounding points;
+  - :func:`plain_reference` runs a plain version as the kernels are held
+    to it: in bfloat16 with its products summed in the kernels' order
+    (:class:`ProductsInOrder`);
   - :class:`FusedGCNStackFunction` and :func:`fused_gcn_stack` make the
-    stack differentiable in x and the parameters.
+    stack differentiable in x and the parameters;
+  - :func:`fused_plan` is the kernels' launch plan, a function of the
+    shapes and the dtype alone: each graph block runs on a thread-block
+    cluster of 4 or 8 blocks, each block owning a range of A_hat's rows
+    (forward) or columns (backward), its slice of A_hat resident in shared
+    memory where it fits, else streamed in tiles.
 
 Compute dtype: it rides ``x`` (float32 or bfloat16).  A_hat and the weights
 are narrowed to it, every product accumulates in float32, bias, relu and
@@ -40,7 +48,10 @@ reproduced.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -49,6 +60,8 @@ from graph_hscn_tpu_torch.ops.cuda import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_LAYERS = 8            # csrc/fused_gcn_common.cuh kMaxLayers
+THREADS = 512             # kThreads: threads a block
+SMEM_LIMIT = 232448       # kSmemLimit: shared-memory bytes a block
 
 # Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 # 3", SC'11; the Random123 constants).
@@ -192,6 +205,46 @@ def fused_gcn_bwd_plain(a_hat, x, ws, acts, g, rate: float = 0.0):
     return dx, dws, dbs
 
 
+class ProductsInOrder(torch.overrides.TorchFunctionMode):
+    """Within ``with ProductsInOrder():`` torch.matmul and torch.bmm sum
+    over their reduction index in order, k = 0, 1, .., one multiply and one
+    add at a time: the order the fused kernels sum in (with bfloat16
+    operands, whose products are exact in float32, their FMA chain bit for
+    bit).  Every other call runs as it is."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func not in (torch.matmul, torch.bmm) or kwargs:
+            return func(*args, **(kwargs or {}))
+        a, b = args
+        out = torch.zeros(*torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]),
+                          a.shape[-2], b.shape[-1],
+                          dtype=torch.result_type(a, b), device=a.device)
+        for k in range(a.shape[-1]):
+            out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+        return out
+
+
+def plain_reference(plain, a_hat, x, *rest):
+    """``plain`` (:func:`fused_gcn_fwd_plain` or :func:`fused_gcn_bwd_plain`)
+    on these arguments, as the card tests and chip_smoke.py hold the
+    kernels to it (within 1e-5 * max|ref| an output in float32, 1e-4 in
+    bfloat16): as it is in float32, under :class:`ProductsInOrder` in
+    bfloat16.
+
+    bfloat16 needs the order.  Kernel and plain version round the same
+    float32 sums to bfloat16 at the same points, and their terms are exact,
+    so the sums differ only in order.  cuBLAS picks its order by shape (its
+    batched A_hat products in order, h W and dy W^T at some row counts not,
+    at one graph block neither), and a sum next to a rounding midpoint then
+    rounds one bfloat16 ulp (0.4%) away from the kernel's, an error carried
+    into everything computed from it.  In the kernels' order every value
+    the kernels round comes out the same, bit for bit."""
+    order = (ProductsInOrder() if x.dtype == torch.bfloat16
+             else contextlib.nullcontext())
+    with order:
+        return plain(a_hat, x, *rest)
+
+
 def _check_stack(name, a_hat, x, ws):
     """Shapes and dtypes the kernels take; returns (G, S, dims)."""
     if x.dtype not in _DTYPES:
@@ -216,6 +269,135 @@ def _check_stack(name, a_hat, x, ws):
                              f"follow width {dims[-1]}")
         dims.append(w.shape[1])
     return G, S, dims
+
+
+def _round4(f: int) -> int:
+    return (f + 3) & ~3
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """How the fused kernels launch for one shape (csrc/fused_gcn_common.cuh
+    ``Plan``): ``graphs * cluster`` blocks in clusters of ``cluster``; block
+    r of a graph owns A_hat's rows (forward) or columns (backward)
+    ``ranges(slot)[r]``; its slice of A_hat lives in shared memory when
+    ``resident``, else it is streamed ``jt`` reduction rows at a time; the
+    exchanged operand (y, or dz) is staged ``jt`` rows by ``fc`` feature
+    columns at a time; ``smem`` dynamic shared bytes a block."""
+
+    graphs: int
+    cluster: int
+    rows: int
+    jt: int
+    fc: int
+    resident: bool
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.graphs * self.cluster
+
+    def ranges(self, slot: int) -> list[tuple[int, int]]:
+        """[start, stop) of the rows (columns) each block of a cluster
+        owns; the last ones may be short or empty."""
+        return [(min(slot, r * self.rows), min(slot, (r + 1) * self.rows))
+                for r in range(self.cluster)]
+
+    def args(self) -> tuple[int, ...]:
+        """The plan's arguments of the C entry points (which lay out the
+        shared memory themselves and refuse a plan that does not fit)."""
+        return (self.cluster, self.rows, self.jt, self.fc, int(self.resident))
+
+
+def plan_smem(slot: int, rows: int, jt: int, fc: int, resident: bool,
+              esize: int, own_stride: int, aux_stride: int,
+              backward: bool = False) -> int:
+    """Shared bytes a block (``make_layout`` in fused_gcn_common.cuh): the
+    A_hat slice or tile (forward [rows, n], its row stride n padded to an
+    odd number of 4-element groups; backward [n, rows]; n = slot resident,
+    else jt), the block's rows of the exchanged operand, its second operand
+    (h or dy, odd row stride), and the staging area (at least 16 floats a
+    thread, for the split reduction's partial sums)."""
+    n = slot if resident else jt
+    a = n * rows if backward else rows * (n if (n // 4) % 2 else n + 4)
+    return (_align16(a * esize) + rows * own_stride * 4
+            + _align16(rows * aux_stride * 4)
+            + max(jt * fc * 4, THREADS * 64))
+
+
+def fused_plan(graphs: int, slot: int, dims, dtype,
+               backward: bool = False) -> FusedPlan | None:
+    """The launch plan of :func:`fused_gcn_fwd` (or, ``backward``,
+    :func:`fused_gcn_bwd`) for G = ``graphs`` graph blocks of ``slot``
+    rows, layer widths ``dims`` and compute ``dtype``; None where no plan
+    fits the shared memory (:func:`_fused_plan`, cached: the wrappers ask
+    for it at every call)."""
+    return _fused_plan(graphs, slot, tuple(dims), dtype, backward)
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_plan(graphs: int, slot: int, dims: tuple, dtype,
+                backward: bool) -> FusedPlan | None:
+    """:func:`fused_plan`.  In order of preference: clusters of 4 with the
+    A_hat slice resident, clusters of 8 resident, clusters of 8 streaming
+    A_hat.  ``fc`` is the widest feature pass whose 4 x 4 tiles need no
+    more than a block's threads, ``jt`` the longest staged tile that fits,
+    both evened out over their passes."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    fp = max(_round4(f) for f in dims[1:])
+    # The second operand's row stride: dy's (backward) or the hidden h's.
+    aux = (fp if backward else max([_round4(f) for f in dims[1:-1]] + [0])
+           ) + 1
+    for cluster, resident in ((4, True), (8, True), (8, False)):
+        rows = _round4(-(-slot // cluster))
+        fc_max = 4 * (THREADS // (rows // 4))
+        if fc_max < 4:
+            continue
+        passes = -(-fp // min(fp, fc_max))
+        fc = _round4(-(-fp // passes))
+
+        def smem(jt):
+            return plan_smem(slot, rows, jt, fc, resident, esize, fp, aux,
+                             backward)
+
+        if smem(4) > SMEM_LIMIT:
+            continue
+        lo, hi = 1, slot // 4        # the largest jt = 4k that fits
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if smem(4 * mid) <= SMEM_LIMIT:
+                lo = mid
+            else:
+                hi = mid - 1
+        steps = -(-slot // (4 * lo))
+        jt = _round4(-(-slot // steps))
+        return FusedPlan(graphs, cluster, rows, jt, fc, resident, smem(jt))
+    return None
+
+
+def _plan_for(name, G, S, dims, dtype, backward):
+    plan = fused_plan(G, S, dims, dtype, backward)
+    if plan is None:
+        raise ValueError(f"{name}: no launch plan fits slot {S} and widths "
+                         f"{dims} in {SMEM_LIMIT} bytes of shared memory")
+    return plan
+
+
+def max_active_clusters(plan: FusedPlan, dtype, backward: bool = False
+                        ) -> int:
+    """cudaOccupancyMaxActiveClusters for the kernel with this plan: how
+    many of its clusters the current card holds at once."""
+    name = "fused_gcn_bwd" if backward else "fused_gcn_fwd"
+    n = getattr(build.load(name), f"{name}_max_clusters")(
+        int(dtype == torch.bfloat16), plan.cluster, plan.smem)
+    if n < 0:
+        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters failed "
+                           f"(CUDA error {-n})")
+    return n
 
 
 def _ptrs(tensors) -> ctypes.Array:
@@ -262,6 +444,7 @@ def fused_gcn_fwd(a_hat, x, ws, bs, rate: float = 0.0, dropout=None):
             if b.shape != (G, S, dims[l + 1]):
                 raise ValueError(f"fused_gcn_fwd: bits {l} {tuple(b.shape)} "
                                  f"is not [{G}, {S}, {dims[l + 1]}]")
+    plan = _plan_for("fused_gcn_fwd", G, S, dims, x.dtype, False)
     outs = [torch.empty(G, S, dims[l + 1], device=x.device,
                         dtype=x.dtype if l < L - 1 else torch.float32)
             for l in range(L)]
@@ -272,7 +455,7 @@ def fused_gcn_fwd(a_hat, x, ws, bs, rate: float = 0.0, dropout=None):
             _ptrs(ws), _ptrs(bs), _ptrs(extra) if mode == 1 else None,
             _ptrs(outs), _ints(dims), L, G, S, mode,
             dropout_threshold(rate), dropout_scale(rate),
-            extra[0].data_ptr() if mode == 2 else None,
+            extra[0].data_ptr() if mode == 2 else None, *plan.args(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_gcn_fwd launch failed: "
@@ -304,8 +487,9 @@ def fused_gcn_bwd(a_hat, x, ws, acts, g, rate: float = 0.0):
                          f"[{G}, {S}, {dims[-1]}]")
     sizes = [n for l in range(L)
              for n in (dims[l] * dims[l + 1], dims[l + 1])]
+    plan = _plan_for("fused_gcn_bwd", G, S, dims, x.dtype, True)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    partial = torch.empty(G, sum(sizes), dtype=torch.float32,
+    partial = torch.empty(plan.blocks, sum(sizes), dtype=torch.float32,
                           device=x.device)
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -313,7 +497,7 @@ def fused_gcn_bwd(a_hat, x, ws, acts, g, rate: float = 0.0):
             a_hat.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
             _ptrs(ws), _ptrs(acts) if acts else None, g.data_ptr(),
             dx.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-            _ints(dims), L, G, S, dropout_scale(rate),
+            _ints(dims), L, G, S, dropout_scale(rate), *plan.args(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_gcn_bwd launch failed: "

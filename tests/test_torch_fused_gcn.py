@@ -3,8 +3,9 @@ against the JAX package's, which runs its Pallas kernels in interpret mode
 as tests/test_fused_gcn.py does: forward and gradients in float32 and
 bfloat16, without dropout and with the same external dropout bits; the
 Philox generator of the seeded dropout; FusedDenseGCN with the weights
-carried across; and that the card's bf16 tolerance fails a kernel that
-leaves out one bf16 rounding point.
+carried across; that the card's bf16 tolerance fails a kernel that leaves
+out one bf16 rounding point; and the in-order products its bf16 reference
+is computed with.
 
 Tolerance: float32 rtol=1e-5, atol=1e-5*max|ref| (sums in another order).
 bfloat16: both round the same float32 values at the same points, so the
@@ -29,14 +30,16 @@ from graph_hscn_tpu_torch.models.convert import (fused_gcn_params_from_jax,
                                                  mpnn_params_from_jax)
 from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
 from graph_hscn_tpu_torch.models.mpnn import MPNN
-from graph_hscn_tpu_torch.ops.fused_gcn import (dropout_bits_plain,
+from graph_hscn_tpu_torch.ops.fused_gcn import (SMEM_LIMIT, THREADS,
+                                                ProductsInOrder,
+                                                dropout_bits_plain,
                                                 dropout_threshold,
                                                 folded_operator,
                                                 fused_gcn_bwd,
                                                 fused_gcn_fwd,
                                                 fused_gcn_fwd_plain,
-                                                fused_gcn_stack,
-                                                philox4x32_10)
+                                                fused_gcn_stack, fused_plan,
+                                                philox4x32_10, plan_smem)
 
 DIMS = [9, 16, 16, 10]
 
@@ -233,6 +236,29 @@ def test_bf16_tolerance_catches_a_missing_rounding_point(setup, skip):
     assert worst(skip) > 1.0
 
 
+@pytest.mark.parametrize("product", ["bmm", "bmm_transposed", "matmul"])
+def test_products_in_order_sum_in_order(product):
+    """ProductsInOrder, under which plain_reference runs the bf16 plain
+    versions: torch.bmm and torch.matmul (a batched [G, S, K] @ [K, N])
+    sum k = 0, 1, .. in order, an explicit loop's bits; other calls run as
+    they are."""
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(3, 40, 40, generator=gen)
+    b = (torch.randn(40, 6, generator=gen) if product == "matmul"
+         else torch.randn(3, 40, 6, generator=gen))
+    if product == "bmm_transposed":
+        a = a.transpose(1, 2)
+    fn = torch.matmul if product == "matmul" else torch.bmm
+    loop = torch.zeros(3, 40, 6)
+    for k in range(40):
+        loop = loop + a[:, :, k:k + 1] * b[..., k:k + 1, :]
+    with ProductsInOrder():
+        got = fn(a, b)
+        total = torch.add(a, 1.0).sum()
+    assert torch.equal(got, loop)
+    assert torch.equal(total, torch.add(a, 1.0).sum())
+
+
 def test_kernel_wrappers_refuse_non_cuda_devices():
     x = torch.empty(2, 8, 9, device="meta")
     a = torch.empty(2, 8, 8, device="meta")
@@ -329,3 +355,102 @@ def test_fused_model_init_and_dropout():
 def test_fused_params_from_jax_rejects_other_trees():
     with pytest.raises(ValueError, match="kernel_i"):
         fused_gcn_params_from_jax({"GCNConv_0": {}})
+
+
+# The launch plan (ops/fused_gcn.py:fused_plan).  WIDE: the widths of
+# configs/GCN/peptides_func_GCN_dp8.yaml (hidden 128, 5 layers).
+WIDE = [9, 128, 128, 128, 128, 10]
+
+
+def _r4(f):
+    return (f + 3) & ~3
+
+
+def _old_kernels_took(slot, dims, backward):
+    """The shared-memory check of the one-block-a-graph kernels that the
+    clustered ones replaced (float32 y, W, dz and dy in shared memory)."""
+    fp, fin = max(_r4(f) for f in dims[1:]), max(dims[:-1])
+    need = 4 * fp * (slot + fin) + (4 * (fp + 1) * slot if backward else 0)
+    return slot % 4 == 0 and need <= SMEM_LIMIT
+
+
+def _check_plan(plan, graphs, slot, dims, dtype, backward):
+    assert plan.cluster in (4, 8)
+    assert plan.blocks == graphs * plan.cluster
+    assert plan.blocks % plan.cluster == 0
+    # The blocks' ranges cover 0..S-1 exactly once.
+    owned = [i for lo, hi in plan.ranges(slot) for i in range(lo, hi)]
+    assert owned == list(range(slot))
+    assert all((hi - lo) % 4 == 0 for lo, hi in plan.ranges(slot))
+    assert plan.rows == _r4(-(-slot // plan.cluster))
+    assert plan.jt % 4 == 0 and 4 <= plan.jt <= slot
+    fp = max(_r4(f) for f in dims[1:])
+    assert plan.fc % 4 == 0 and 4 <= plan.fc <= fp
+    assert (plan.rows // 4) * (plan.fc // 4) <= THREADS
+    esize = 2 if dtype == torch.bfloat16 else 4
+    aux = (fp if backward else max([_r4(f) for f in dims[1:-1]] + [0])) + 1
+    assert plan.smem == plan_smem(slot, plan.rows, plan.jt, plan.fc,
+                                  plan.resident, esize, fp, aux, backward)
+    assert plan.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [DIMS, WIDE], ids=["h16", "h128"])
+def test_fused_plan_every_slot(dims, dtype, backward):
+    """Every slot 8..512 (step 8) at the fused peptides widths and at
+    hidden 128 gets a plan: ranges that cover the slot exactly once, tiles
+    within a block's threads, shared memory within the card's 232,448
+    bytes; every shape the old kernels took among them too."""
+    for slot in range(8, 513, 8):
+        plan = fused_plan(32, slot, dims, dtype, backward)
+        assert plan is not None, slot
+        _check_plan(plan, 32, slot, dims, dtype, backward)
+    if dims == DIMS:   # the A_hat slice stays resident at these widths
+        assert all(fused_plan(32, s, dims, dtype, backward).resident
+                   for s in range(8, 513, 8))
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_plan_takes_every_shape_the_old_kernels_took(dtype, backward):
+    """Slots up to the old kernels' limit (3,616 at the peptides widths,
+    far beyond the 512 of dense slots), widths up to 236, 1 to 8 layers:
+    each shape they took gets a plan, streaming A_hat where its slice does
+    not fit even in clusters of 8."""
+    rng = np.random.default_rng(11)
+    shapes = [(s, DIMS) for s in (516, 1024, 2048, 3612, 3616)]
+    for _ in range(300):   # random widths, a random slot the old took
+        layers = int(rng.integers(1, 9))
+        dims = [int(f) for f in rng.integers(1, 237, size=layers + 1)]
+        top = max((s for s in range(4, 14600, 4)
+                   if _old_kernels_took(s, dims, backward)), default=0)
+        if top:
+            shapes += [(top, dims), (4 * int(rng.integers(1, top // 4 + 1)),
+                                     dims)]
+    shapes += [(4, [236, 236]), (14524, [1, 1]), (8, [9, 236, 236, 10])]
+    took = streamed = 0
+    for slot, dims in shapes:
+        if not _old_kernels_took(slot, dims, backward):
+            continue
+        took += 1
+        plan = fused_plan(3, slot, dims, dtype, backward)
+        assert plan is not None, (slot, dims)
+        _check_plan(plan, 3, slot, dims, dtype, backward)
+        streamed += not plan.resident
+    assert took > 300 and streamed > 0
+
+
+def test_fused_plan_peptides_batch():
+    """The fused peptides batch (G=32, S=392, 9 -> 16 -> 16 -> 10): clusters
+    of 4 (128 blocks, about one an SM), 100 rows a block, A_hat resident and
+    y staged whole; at S=512 and hidden 128, clusters of 8, still resident.
+    A shape no plan fits gives None."""
+    for backward in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = fused_plan(32, 392, DIMS, dtype, backward)
+            assert (plan.cluster, plan.rows, plan.resident, plan.jt,
+                    plan.blocks) == (4, 100, True, 392, 128)
+        wide = fused_plan(32, 512, WIDE, torch.float32, backward)
+        assert (wide.cluster, wide.rows, wide.resident) == (8, 64, True)
+    assert fused_plan(1, 8, [9, 8192, 10], torch.float32) is None
