@@ -22,12 +22,14 @@ Phases; any failure exits non-zero:
                  S=1024 with input width 64 (A_hat streamed, x read from
                  global memory); the backward twice, bit for bit;
                - spmm_mh and sddmm_mh at the VOC GAT batch (N=19048, 72832
-                 edge slots): spmm_mh forward and transpose at H*C = 64, 84
-                 and 8, sddmm_mh at C = 16 (float32, bfloat16, bfloat16 with
-                 float32), 21 and 2, and gat_edge_logits; the library
-                 call is one torch.sparse.mm / sampled_addmm on the
-                 block-diagonal [H*N, H*N] CSR, checked against the plain
-                 version too;
+                 edge slots), every width and role of a train step:
+                 spmm_mh forward and transpose (alpha read in t_order by
+                 the kernel) at H*C = 64, 84 and 8, sddmm_mh at C = 16
+                 (float32, bfloat16, bfloat16 with float32), 21 and 2, in
+                 float32 and bfloat16, each with its launch plan, and
+                 gat_edge_logits; the library call is one torch.sparse.mm /
+                 sampled_addmm on the block-diagonal [H*N, H*N] CSR,
+                 checked against the plain version too;
                - segment_reduce at the VOC GatedGCN batch (N=19048, 72832
                  edge slots, F=64): float32 and bfloat16, the receiver side
                  (rows in edge order) and the sender side (rows taken in
@@ -41,7 +43,7 @@ Phases; any failure exits non-zero:
                Device times: CUDA events over calls queued behind a device
                sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
-               segment_reduce and [hbm] are timed cold, each call on the
+               [gat], segment_reduce and [hbm] are timed cold, each call on the
                next of copies of its inputs that span 4x the L2 (rotating),
                so that their times compare with the HBM bound; the kernel's
                warm time (the same inputs call after call) is printed too.
@@ -413,127 +415,184 @@ def _timing(case: dict, worst_err: float) -> dict:
             "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
 
 
-def phase_gat_kernels():
-    """spmm_mh (B6) and sddmm_mh (B7) at the VOC GAT batch shape, against
-    their plain versions: spmm_mh forward and transpose at the widths GAT's
-    layers give it (H*C = 64, 84 and 8), sddmm_mh at C = 16, 21 and 2 with
-    the backward's mixed dtypes, and gat_edge_logits.  Returns the two
-    kernels' records (without launch counts)."""
-    import torch
-
+def gat_batch_plan():
+    """The CSR plan of the VOC GAT config's first train batch, on the card."""
     from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.data.pipeline import DataModule
-    from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (
-        gat_edge_logits, sddmm_mh, sddmm_mh_plain, spmm_mh, spmm_mh_plain)
 
     cfg = load_config(VOC_GAT)
     dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
     dm.with_spmm_plan = True
-    p = next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda").spmm
+    return next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda").spmm
+
+
+def gat_cases(p) -> list[dict]:
+    """Every width and role at which a VOC GAT train step launches spmm_mh
+    (B6) and sddmm_mh (B7), on plan ``p``, float32 and bfloat16:
+    - spmm_mh forward (row_ptr, col) and transpose (t_row_ptr, t_col, alpha
+      read in t_order by the kernel) at H*C = 64 and 84 (the layers'
+      aggregation and its dx) and 8 (the logits' d a_dst and d a_src);
+    - sddmm_mh at C = 16 (float32, bfloat16, bfloat16 with float32: spmm_mh's
+      d alpha), 21 and 2 (the logits and the max shift).
+    Each case: its kernel call and plain version (function, arguments), the
+    bytes and operations of its bound (each input read once: t_order's
+    int64 entries on the transpose), its inputs, and a library call (one
+    torch.sparse.mm / sampled_addmm on the block-diagonal [H*N, H*N] CSR,
+    against head-major float32 operands laid out beforehand; float32 only)
+    with the map of its result to the kernel's layout."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (
+        sddmm_mh, sddmm_mh_plain, spmm_mh, spmm_mh_plain)
+
     n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
-    print(f"[gat] VOC GAT batch: N={n} E={e} real edges={nnz}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
-    worst = {"spmm_mh": 0.0, "sddmm_mh": 0.0}
-
-    def run(name, role, label, dtype, kern, plain, nbytes, ops, lib=None):
-        """Hold kern against plain (1e-5*max|ref| when every operand is
-        float32, 1e-4*max|ref| with a bfloat16 one) and time kernel, plain
-        version and the library call.  ``lib``: (one library call, its
-        result in the kernel's layout), held to the same tolerance."""
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        tol_rel = 1e-5 if dtype == "float32" else 1e-4
-        tol = tol_rel * max(float(ref.abs().max()), 1e-6)
-        if not out.isfinite().all() or err > tol:
-            fail(f"{name} {role} {label} {dtype}: max |err| {err:.3e} > "
-                 f"tolerance {tol:.3e}")
-        if name in worst:
-            worst[name] = max(worst[name], err)
-        lib_ms, why = None, "none"
-        if lib is not None:
-            lib_call, as_ref = lib
-            lib_err = float((as_ref(lib_call()) - ref).abs().max())
-            if lib_err > tol:
-                fail(f"{name} {role} {label} library call: max |err| "
-                     f"{lib_err:.3e} > tolerance {tol:.3e}")
-            lib_ms, why = library_ms(lib_call)
-        b_ms, b_by = bound_ms(nbytes, ops)
-        k_ms, k_host = time_ms(kern)
-        p_ms, _ = time_ms(plain)
-        case = dict(name=name, role=role, label=label, dtype=dtype,
-                    max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        cases.append(case)
-        print(f"[gat] {name:8s} {role:9s} {label:10s} {dtype:15s} err "
-              f"{err:.2e} (tol {tol:.1e}) device: kernel {k_ms * 1e3:7.2f} "
-              f"us  plain {p_ms * 1e3:8.2f} us  bound {b_ms * 1e3:5.2f} us "
-              f"({b_by})  library "
-              + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
-                 else f"n/a ({why})")
-              + f"; host a call {k_host * 1e3:6.2f} us", flush=True)
-
-    # Library calls, never made by the port: one torch.sparse.mm (B6) or
-    # one sampled_addmm (B7) on the block-diagonal [H*N, H*N] CSR of the
-    # same edges, against head-major float32 operands laid out beforehand.
     for heads, c in ((4, 16), (4, 21), (4, 2)):
         f = heads * c
         alpha = torch.rand(e, heads, device="cuda", generator=gen)
         a_t = alpha.index_select(0, p.t_order).contiguous()
-        for role, rp, col, a in (("forward", p.row_ptr, p.col, alpha),
-                                 ("transpose", p.t_row_ptr, p.t_col, a_t)):
-            a_bd, _ = block_diag_csr(rp, col, a)
+        for role, rp, col, order, a_ref in (
+                ("forward", p.row_ptr, p.col, None, alpha),
+                ("transpose", p.t_row_ptr, p.t_col, p.t_order, a_t)):
+            a_bd, _ = block_diag_csr(rp, col, a_ref)
             for dtype in (f32, bf16):
                 x = torch.randn(n, f, device="cuda", generator=gen).to(dtype)
                 lib = None
                 if dtype == f32:
-                    x_hm = head_major(x, heads).contiguous()
-                    lib = (lambda x_hm=x_hm, a_bd=a_bd:
-                           torch.sparse.mm(a_bd, x_hm),
+                    lib = (torch.sparse.mm,
+                           (a_bd, head_major(x, heads).contiguous()),
                            lambda y, h=heads: y.reshape(h, n, -1).transpose(
                                0, 1).reshape(n, -1))
-                run("spmm_mh", role, f"H={heads} C={c}",
-                    str(dtype).replace("torch.", ""),
-                    lambda x=x, a=a, rp=rp, col=col: spmm_mh(x, a, rp, col),
-                    lambda x=x, a=a, rp=rp, col=col: spmm_mh_plain(x, a, rp,
-                                                                   col),
-                    n * f * x.element_size() + nnz * heads * 4
-                    + (n + 1) * 4 + nnz * 4 + n * f * 4,
-                    2.0 * nnz * f, lib)
+                cases.append(dict(
+                    name="spmm_mh", role=role, heads=heads, c=c,
+                    dtype=str(dtype).replace("torch.", ""),
+                    kern=spmm_mh, args=(x, alpha, rp, col, order),
+                    plain=spmm_mh_plain, plain_args=(x, a_ref, rp, col),
+                    nbytes=(n * f * x.element_size() + nnz * heads * 4
+                            + (n + 1) * 4 + nnz * 4 + n * f * 4
+                            + (nnz * 8 if order is not None else 0)),
+                    ops=2.0 * nnz * f, lib=lib))
     pattern, order = block_diag_csr(p.row_ptr, p.col,
                                     torch.zeros(e, 4, device="cuda"))
     for heads, c, ds, dd in ((4, 16, f32, f32), (4, 16, bf16, bf16),
                              (4, 16, bf16, f32), (4, 21, f32, f32),
-                             (4, 2, f32, f32)):
+                             (4, 21, bf16, bf16), (4, 2, f32, f32),
+                             (4, 2, bf16, bf16)):
         f = heads * c
         hs = torch.randn(n, f, device="cuda", generator=gen).to(ds)
         hd = torch.randn(n, f, device="cuda", generator=gen).to(dd)
         lib = None
         if (ds, dd) == (f32, f32):
-            # Rows of the pattern are receivers: dst @ src^T, sampled.
-            dst_hm = head_major(hd, heads).contiguous()
-            src_hm_t = head_major(hs, heads).t().contiguous()
-
             def as_ref(y, h=heads):
                 """Block-diagonal CSR values -> [E, H] in edge order."""
                 dots = torch.zeros(e, h, device="cuda")
                 dots[order] = y.values().reshape(h, nnz).t()
                 return dots
 
-            lib = (lambda dst_hm=dst_hm, src_hm_t=src_hm_t:
-                   torch.sparse.sampled_addmm(pattern, dst_hm, src_hm_t,
-                                              beta=0.0), as_ref)
-        run("sddmm_mh", "dots", f"H={heads} C={c}",
-            "/".join(str(t).replace("torch.", "") for t in (ds, dd))
+            # Rows of the pattern are receivers: dst @ src^T, sampled.
+            lib = (lambda pat, a, b: torch.sparse.sampled_addmm(
+                pat, a, b, beta=0.0),
+                   (pattern, head_major(hd, heads).contiguous(),
+                    head_major(hs, heads).t().contiguous()), as_ref)
+        cases.append(dict(
+            name="sddmm_mh", role="dots", heads=heads, c=c,
+            dtype="/".join(str(t).replace("torch.", "") for t in (ds, dd))
             if ds != dd else str(ds).replace("torch.", ""),
-            lambda hs=hs, hd=hd, h=heads: sddmm_mh(hs, hd, p.row, p.col, nnz,
-                                                   h),
-            lambda hs=hs, hd=hd, h=heads: sddmm_mh_plain(hs, hd, p.row,
-                                                         p.col, nnz, h),
-            n * f * (hs.element_size() + hd.element_size()) + nnz * 8
-            + e * heads * 4, 2.0 * nnz * f, lib)
+            kern=sddmm_mh, args=(hs, hd, p.row, p.col, nnz, heads),
+            plain=sddmm_mh_plain, plain_args=(hs, hd, p.row, p.col, nnz,
+                                              heads),
+            nbytes=(n * f * (hs.element_size() + hd.element_size())
+                    + nnz * 8 + e * heads * 4),
+            ops=2.0 * nnz * f, lib=lib))
+    return cases
+
+
+def plan_label(plan) -> str:
+    """A launch plan of the multi-head kernels in a few words."""
+    return (("row" if plan.row_layout else "head") + f" layout V={plan.vec} "
+            f"VP={plan.passes} S={plan.lanes_per_head} L={plan.lanes} "
+            f"B={plan.batch}")
+
+
+def check_case(case: dict) -> tuple[float, float]:
+    """Hold a case's kernel against its plain version (1e-5*max|ref| when
+    every operand is float32, 1e-4*max|ref| with a bfloat16 one) and its
+    library call to the same tolerance; fails the run otherwise.  Returns
+    (max |err|, tol)."""
+    import torch
+    out = case["kern"](*case["args"])
+    ref = case["plain"](*case["plain_args"])
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol_rel = 1e-5 if case["dtype"] == "float32" else 1e-4
+    tol = tol_rel * max(float(ref.abs().max()), 1e-6)
+    label = (f"{case['name']} {case['role']} H={case['heads']} "
+             f"C={case['c']} {case['dtype']}")
+    if not out.isfinite().all() or err > tol:
+        fail(f"{label}: max |err| {err:.3e} > tolerance {tol:.3e}")
+    if case["lib"] is not None:
+        fn, args, as_ref = case["lib"]
+        lib_err = float((as_ref(fn(*args)) - ref).abs().max())
+        if lib_err > tol:
+            fail(f"{label} library call: max |err| {lib_err:.3e} > "
+                 f"tolerance {tol:.3e}")
+    return err, tol
+
+
+def phase_gat_kernels():
+    """spmm_mh (B6) and sddmm_mh (B7) at the VOC GAT batch shape (N=19048,
+    72832 edge slots), every width and role of the step (gat_cases) and
+    gat_edge_logits, against their plain versions.  Kernel, plain version
+    and library call timed cold (``rotating``, inputs from HBM as the bound
+    assumes), the kernel warm beside it.  Returns the two kernels' records
+    (without launch counts): H=4 C=16 float32, forward and dots, cold."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (
+        gat_edge_logits, multihead_plan, sddmm_mh_plain)
+
+    p = gat_batch_plan()
+    n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
+    print(f"[gat] VOC GAT batch: N={n} E={e} real edges={nnz}", flush=True)
+    worst = {"spmm_mh": 0.0, "sddmm_mh": 0.0}
+    records = {}
+    for case in gat_cases(p):
+        err, tol = check_case(case)
+        name = case["name"]
+        worst[name] = max(worst[name], err)
+        lib_ms, why = None, "float32 only"
+        if case["lib"] is not None:
+            fn, args, _ = case["lib"]
+            lib_ms, why = library_ms(rotating(fn, *args))
+        b_ms, b_by = bound_ms(case["nbytes"], case["ops"])
+        k_ms, k_host = time_ms(rotating(case["kern"], *case["args"]))
+        warm_ms, _ = time_ms(lambda c=case: c["kern"](*c["args"]))
+        p_ms, _ = time_ms(rotating(case["plain"], *case["plain_args"]))
+        ds = case["args"][0].dtype
+        if name == "sddmm_mh" and torch.bfloat16 in (ds, case["args"][1]
+                                                     .dtype):
+            ds = torch.bfloat16
+        plan = multihead_plan(name, case["heads"], case["c"], ds)
+        label = f"H={case['heads']} C={case['c']}"
+        print(f"[gat] {name:8s} {case['role']:9s} {label:8s} "
+              f"{case['dtype']:15s} err {err:.2e} (tol {tol:.1e}) device, "
+              f"cold L2: kernel {k_ms * 1e3:7.2f} us ({b_ms / k_ms:.2f} of "
+              f"bound)  plain {p_ms * 1e3:8.2f} us  bound "
+              f"{b_ms * 1e3:5.2f} us ({b_by})  library "
+              + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
+                 else f"n/a ({why})")
+              + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
+              f"{k_host * 1e3:6.2f} us; plan {plan_label(plan)}", flush=True)
+        if (case["role"], case["c"], case["dtype"]) in (
+                ("forward", 16, "float32"), ("dots", 16, "float32")):
+            records[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                 bound_ms=b_ms, bound_by=b_by)
+            print(f"[gat] {name} H=4 C=16 float32: cold {k_ms * 1e3:.2f} us "
+                  f"against half its bound's target {2 * b_ms * 1e3:.2f} us: "
+                  + ("met" if k_ms <= 2 * b_ms else "NOT met"), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
     a_src = torch.randn(n, 4, device="cuda", generator=gen)
     a_dst = torch.randn(n, 4, device="cuda", generator=gen)
 
@@ -543,13 +602,17 @@ def phase_gat_kernels():
         hd = torch.stack([ones, a_dst], -1).reshape(n, 8)
         return sddmm_mh_plain(hs, hd, p.row, p.col, nnz, 4)
 
-    run("gat_edge_logits", "logits", "H=4 C=2", "float32",
-        lambda: gat_edge_logits(a_src, a_dst, p), logits_plain,
-        2 * n * 4 * 4 + nnz * 8 + e * 4 * 4, 1.0 * nnz * 4, None)
-    records = {c["name"]: c for c in cases
-               if (c["role"], c["label"], c["dtype"]) in (
-                   ("forward", "H=4 C=16", "float32"),
-                   ("dots", "H=4 C=16", "float32"))}
+    out, ref = gat_edge_logits(a_src, a_dst, p), logits_plain()
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = 1e-5 * max(float(ref.abs().max()), 1e-6)
+    if not out.isfinite().all() or err > tol:
+        fail(f"gat_edge_logits: max |err| {err:.3e} > tolerance {tol:.3e}")
+    k_ms, _ = time_ms(lambda: gat_edge_logits(a_src, a_dst, p))
+    p_ms, _ = time_ms(logits_plain)
+    print(f"[gat] gat_edge_logits H=4 C=2 float32 err {err:.2e} (tol "
+          f"{tol:.1e}) device, warm: {k_ms * 1e3:.2f} us (stack + sddmm_mh), "
+          f"plain {p_ms * 1e3:.2f} us", flush=True)
     src = "graph_hscn_tpu_torch/csrc/{}.cu"
     pallas = "graph_hscn_tpu/ops/pallas/multihead_kernel.py:{}"
     return [
@@ -858,10 +921,13 @@ def no_launches(cfg, steps, evals):
     return {}
 
 
-def profile_steps(label: str, step, make_batch, steps: int = 6) -> None:
+def profile_steps(label: str, step, make_batch, steps: int = 6,
+                  focus: dict | None = None) -> None:
     """Where a train step's time goes: ``step(make_batch(i))`` over
     ``steps`` steady steps (after 3 warm-up steps) under torch.profiler;
-    device busy time, idle share, and the kernels by device time."""
+    device busy time, idle share, and the kernels by device time.
+    ``focus``: {label: name substrings}, each group's summed device time
+    and count a step (a device operation whose name holds a substring)."""
     import torch
 
     for i in range(3):   # warm-up
@@ -886,9 +952,22 @@ def profile_steps(label: str, step, make_batch, steps: int = 6) -> None:
     for name, ts in top:
         print(f"[profile]   {sum(ts) / steps:8.2f} us a step  "
               f"{len(ts) / steps:5.1f} a step  {name[:90]}")
+    for group, keys in (focus or {}).items():
+        ts = [t for name, times in by_name.items()
+              if any(k in name for k in keys) for t in times]
+        print(f"[profile] {label}, {group}: {sum(ts) / steps:.2f} us a step "
+              f"of device time, {len(ts) / steps:.1f} operations a step",
+              flush=True)
 
 
-def phase_profile(path: Path, label: str):
+# The VOC GAT step's attention work: the two kernels, and the gathers left
+# around them (index_select and indexing kernels).
+GAT_FOCUS = {"spmm_mh + sddmm_mh kernels": ("spmm_mh_kernel",
+                                            "sddmm_mh_kernel"),
+             "gathers (index_select, indexing)": ("indexSelect", "gather")}
+
+
+def phase_profile(path: Path, label: str, focus: dict | None = None):
     """A VOC sparse path's fit-loop body (move the batch, train step)."""
     import torch
 
@@ -911,7 +990,8 @@ def phase_profile(path: Path, label: str):
     gen = torch.Generator(device="cuda").manual_seed(0)
     step, _ = make_train_step(model, opt, cfg.training.loss_fn,
                               node_level=True, generator=gen)
-    profile_steps(label, step, lambda i: batches[i % len(batches)].to("cuda"))
+    profile_steps(label, step, lambda i: batches[i % len(batches)].to("cuda"),
+                  focus=focus)
 
 
 def phase_reference(path: Path):
@@ -1450,7 +1530,7 @@ def main() -> int:
     phase_profile(CONFIG, "VOC sparse GCN")
     phase_profile_peptides(PEPTIDES, "peptides unfused GCN")
     phase_profile_peptides(PEPTIDES_FUSED, "peptides fused GCN", fused=True)
-    phase_profile(VOC_GAT, "VOC sparse GAT")
+    phase_profile(VOC_GAT, "VOC sparse GAT", focus=GAT_FOCUS)
     phase_profile_peptides(PEPTIDES_GAT, "peptides dense GAT")
     phase_profile(VOC_GATED, "VOC sparse GatedGCN")
     phase_profile_peptides(PEPTIDES_GATED, "peptides-struct GatedGCN")

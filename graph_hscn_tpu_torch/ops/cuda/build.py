@@ -41,11 +41,14 @@ SIGNATURES = {
     # row, col, h_src, src_bf16, h_dst, dst_bf16, out, n_edges, n_real, f,
     # stream
     "edge_sddmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
-    # row_ptr, col, alpha, x, x_bf16, out, n_rows, heads, c, stream
-    "spmm_mh": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
+    # row_ptr, col, order (or null), alpha, x, x_bf16, out, n_rows, heads,
+    # c, the plan (vec, passes, lanes_per_head, lanes, row_layout, batch),
+    # stream
+    "spmm_mh": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                _I, _P),
     # row, col, h_src, src_bf16, h_dst, dst_bf16, out, n_edges, n_real,
-    # heads, c, stream
-    "sddmm_mh": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # heads, c, the plan (vec, passes), stream
+    "sddmm_mh": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # row_ptr, order (or null), msgs, msgs_bf16, out, n_rows, f, stream
     "segment_reduce": (_P, _P, _P, _I, _P, _I, _I, _P),
     # a_hat, x, bf16, w[], b[], bits[], out[], dims[], num_layers, graphs,

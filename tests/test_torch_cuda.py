@@ -201,32 +201,48 @@ def test_run_experiment_on_the_card_launches_the_kernel():
                                           + 2 * result.num_eval_batches)
 
 
-@pytest.mark.parametrize("heads,c", [(4, 16), (4, 21), (4, 2), (1, 16),
-                                     (3, 50)])
+# The GAT path's widths (H*C = 64, 84 and 8, C not a power of two) and
+# widths that reach every launch plan the kernels build (held so by
+# tests/test_torch_multihead_plan.py): one head of an odd width (one lane
+# a row), a head of 5 values (one value a load), 8 heads of 32 (two lanes
+# a head), 50 values a head (8 vectors a lane), 129 (vector chunks past
+# what a group holds at once), 33 heads (two head passes, by edge), one
+# head of 1, 4, 8 or 12 values (the narrow vector widths), and 4 heads of 3
+# or 10 (the row layout's narrower vectors).
+MH_WIDTHS = [(4, 16), (4, 21), (4, 2), (1, 16), (1, 7), (3, 5), (8, 32),
+             (3, 50), (3, 129), (33, 2), (1, 1), (1, 4), (1, 8), (1, 12),
+             (4, 3), (4, 10)]
+
+
+@pytest.mark.parametrize("heads,c", MH_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_spmm_mh_matches_plain(batch, heads, c, dtype):
-    """Forward and transpose, at the GAT path's widths (H*C = 64, 84 and
-    8, C not a power of two) and a width past one 128-feature pass."""
+    """Forward, transpose with alpha permuted beforehand, and transpose with
+    the permutation folded into the kernel (order = t_order)."""
     need_card()
     p = batch.spmm.to("cuda")
     n = p.num_nodes
     gen = torch.Generator(device="cuda").manual_seed(heads * c)
     x = torch.randn(n, heads * c, device="cuda", generator=gen).to(dtype)
     alpha = torch.rand(p.col.numel(), heads, device="cuda", generator=gen)
+    a_t = alpha[p.t_order].contiguous()
     tol = 1e-5 if dtype == torch.float32 else 1e-4
     before = spmm_mh.launches
-    for rp, col, a in ((p.row_ptr, p.col, alpha),
-                       (p.t_row_ptr, p.t_col, alpha[p.t_order].contiguous())):
-        out = spmm_mh(x, a, rp, col)
+    for rp, col, a, order, a_ref in (
+            (p.row_ptr, p.col, alpha, None, alpha),
+            (p.t_row_ptr, p.t_col, a_t, None, a_t),
+            (p.t_row_ptr, p.t_col, alpha, p.t_order, a_t)):
+        out = spmm_mh(x, a, rp, col, order)
         torch.cuda.synchronize()
         assert out.dtype == torch.float32 and out.shape == (n, heads * c)
-        assert_close(out, spmm_mh_plain(x, a, rp, col), tol)
-    assert spmm_mh.launches == before + 2
+        assert_close(out, spmm_mh_plain(x, a_ref, rp, col), tol)
+    assert spmm_mh.launches == before + 3
 
 
-@pytest.mark.parametrize("heads,c", [(4, 16), (4, 21), (4, 2), (1, 2)])
+@pytest.mark.parametrize("heads,c", MH_WIDTHS + [(1, 2)])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16),
                                     (torch.bfloat16, torch.bfloat16)])
 def test_sddmm_mh_matches_plain(batch, heads, c, dtypes):
     need_card()
@@ -243,6 +259,83 @@ def test_sddmm_mh_matches_plain(batch, heads, c, dtypes):
     assert_close(out, sddmm_mh_plain(hs, hd, p.row, p.col, p.num_edges,
                                      heads))
     assert not out[p.num_edges:].any()
+
+
+def hub_plan(n=3000, hub_edges=1500, seed=0):
+    """A plan whose node 0 receives ``hub_edges`` edges and whose node 1
+    sends as many (hub rows on both sides, many chunks of a lane group),
+    beside ~2 random edges a node and 100 padding slots."""
+    rng = np.random.default_rng(seed)
+    snd = np.concatenate([rng.integers(0, n, hub_edges), np.ones(hub_edges),
+                          rng.integers(0, n, 2 * n)]).astype(np.int32)
+    rcv = np.concatenate([np.zeros(hub_edges), rng.integers(0, n, hub_edges),
+                          rng.integers(0, n, 2 * n)]).astype(np.int32)
+    srt = np.argsort(rcv, kind="stable")
+    snd = np.concatenate([snd[srt], np.full(100, n - 1, np.int32)])
+    rcv = np.concatenate([rcv[srt], np.full(100, n - 1, np.int32)])
+    mask = np.arange(snd.size) < srt.size
+    return csr_plan(snd, rcv, mask, n).to("cuda")
+
+
+@pytest.mark.parametrize("heads,c", [(4, 16), (4, 21), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multihead_kernels_on_hub_rows(heads, c, dtype):
+    """A row of 1,500 edges on each side of the plan: both kernels, the
+    transpose with the folded order, against their plain versions."""
+    need_card()
+    p = hub_plan()
+    assert int((p.row_ptr[1:] - p.row_ptr[:-1]).max()) >= 1000
+    assert int((p.t_row_ptr[1:] - p.t_row_ptr[:-1]).max()) >= 1000
+    n, f = p.num_nodes, heads * c
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    x = torch.randn(n, f, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(n, f, device="cuda", generator=gen)
+    alpha = torch.rand(p.col.numel(), heads, device="cuda", generator=gen)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    assert_close(spmm_mh(x, alpha, p.row_ptr, p.col),
+                 spmm_mh_plain(x, alpha, p.row_ptr, p.col), tol)
+    assert_close(spmm_mh(x, alpha, p.t_row_ptr, p.t_col, p.t_order),
+                 spmm_mh_plain(x, alpha[p.t_order], p.t_row_ptr, p.t_col),
+                 tol)
+    out = sddmm_mh(x, g, p.row, p.col, p.num_edges, heads)
+    assert_close(out, sddmm_mh_plain(x, g, p.row, p.col, p.num_edges, heads))
+    assert not out[p.num_edges:].any()
+
+
+@pytest.mark.parametrize("heads,c", [(4, 16), (4, 21), (4, 2)])
+def test_multihead_kernels_on_empty_rows(batch, heads, c):
+    """A plan with no real edge: spmm_mh writes zero rows, sddmm_mh zeros
+    every slot, with no zero-fill launch."""
+    need_card()
+    p = batch.spmm.to("cuda")
+    n, e = p.num_nodes, p.col.numel()
+    empty = torch.zeros_like(p.row_ptr)
+    x = torch.randn(n, heads * c, device="cuda")
+    alpha = torch.rand(e, heads, device="cuda")
+    out = spmm_mh(x, alpha, empty, p.col)
+    dots = sddmm_mh(x, x, p.row, p.col, 0, heads)
+    torch.cuda.synchronize()
+    assert out.shape == (n, heads * c) and not out.any()
+    assert dots.shape == (e, heads) and not dots.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multihead_kernels_run_twice_bit_identical(batch, dtype):
+    """Fixed summation orders: each kernel gives the same bits twice, on
+    every role of the GAT step."""
+    need_card()
+    p = batch.spmm.to("cuda")
+    n, e = p.num_nodes, p.col.numel()
+    for heads, c in ((4, 16), (4, 21), (4, 2), (3, 50)):
+        x = torch.randn(n, heads * c, device="cuda").to(dtype)
+        g = torch.randn(n, heads * c, device="cuda")
+        alpha = torch.rand(e, heads, device="cuda")
+        runs = [
+            lambda: spmm_mh(x, alpha, p.row_ptr, p.col),
+            lambda: spmm_mh(x, alpha, p.t_row_ptr, p.t_col, p.t_order),
+            lambda: sddmm_mh(x, g, p.row, p.col, p.num_edges, heads)]
+        for run in runs:
+            assert torch.equal(run(), run())
 
 
 def test_multihead_grads_match_cpu(batch):
@@ -286,6 +379,8 @@ def test_multihead_wrappers_refuse_what_the_kernels_do_not_take(batch):
         spmm_mh(x, a[:-1].contiguous(), p.row_ptr, p.col)
     with pytest.raises(ValueError, match="contiguous"):
         spmm_mh(torch.randn(8, n, device="cuda").t(), a, p.row_ptr, p.col)
+    with pytest.raises(TypeError):
+        spmm_mh(x, a, p.t_row_ptr, p.t_col, p.t_order.int())
     with pytest.raises(ValueError, match="multiple"):
         sddmm_mh(x, x, p.row, p.col, p.num_edges, 3)
     with pytest.raises(TypeError):
