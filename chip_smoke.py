@@ -12,7 +12,12 @@ Phases; any failure exits non-zero:
                shapes, with CUDA-event times of kernel and plain version, a
                library call or yardstick, and the bound:
                - csr_spmm and edge_sddmm at a VOC-superpixels sparse GCN
-                 batch (N=9784, F=64 and 21, float32 and bfloat16);
+                 batch (N=9784, F=64 and 21, float32 and bfloat16; the
+                 transpose reads the weights in t_order in the kernel),
+                 each with its launch plan, timed cold with the warm time
+                 beside; then the floor of a launch under the same timer:
+                 each kernel on one row or edge (the launch alone), and at
+                 F=1 on the VOC plan, cold (the index chain);
                - fused_gcn_fwd/bwd at the peptides batch (G=32 graphs, slot
                  392, 9 -> 16 -> 16 -> 10, float32 and bfloat16, no dropout,
                  given bits and the seeded Philox stream), each launch
@@ -39,14 +44,16 @@ Phases; any failure exits non-zero:
                - [hbm] csr_spmm forward and transpose and edge_sddmm at F=128
                  on the 142 x 142 and 226 x 226 lattices (N=20164 and 51076),
                  the sizes at which the TPU takes its HBM-streamed kernels
-                 (B4a-c), beside torch.sparse.mm / sampled_addmm.
+                 (B4a-c), beside torch.sparse.mm / sampled_addmm, each
+                 with its launch plan.
                Device times: CUDA events over calls queued behind a device
                sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
-               [gat], segment_reduce and [hbm] are timed cold, each call on the
-               next of copies of its inputs that span 4x the L2 (rotating),
-               so that their times compare with the HBM bound; the kernel's
-               warm time (the same inputs call after call) is printed too.
+               Every kernel of the sparse paths ([kernels], [gat],
+               [gatedgcn], [hbm]) is timed cold, each call on the next of
+               copies of its inputs that span 4x the L2 (rotating), so that
+               its time compares with the HBM bound; the kernel's warm time
+               (the same inputs call after call) is printed too.
   4. train   - run_experiment at full width for 2 epochs each on
                configs/GCN/voc_superpixels_GCN_sparse.yaml,
                configs/GCN/peptides_func_GCN.yaml,
@@ -63,8 +70,9 @@ Phases; any failure exits non-zero:
                segment_reduce a train step, 8 an eval batch; the unfused
                peptides configs: none).  Then a torch.profiler window over
                steady train steps of each sparse VOC path and the four
-               peptides paths (device busy time, idle share, kernels by
-               time); then each sparse VOC model and the fused stack at
+               peptides paths (device busy time, idle share, device
+               operations, kernels by time; VOC GCN and GAT: their kernels'
+               and the gathers' device time a step); then each sparse VOC model and the fused stack at
                full width on a 4-graph batch, on the card and on the CPU:
                logits and gradients agree.
 The last three lines are the {"kernels": [...]} record, nvidia-smi's line, and
@@ -304,16 +312,22 @@ def warm_up_card(seconds: float = 1.0) -> None:
 
 
 def phase_kernels():
-    """Hold each kernel against its plain version at the main path's
-    shapes; returns the kernels' records (without launch counts)."""
+    """Hold csr_spmm (B1) and edge_sddmm (B3) against their plain versions
+    at the VOC GCN path's shapes (F = 64 and 21, float32 and bfloat16; the
+    transpose with the weights read in t_order by the kernel), each with
+    its launch plan, timed cold (``rotating``: inputs from HBM, as the
+    bound assumes) with the warm time beside; then the floor of a launch
+    under the same timer.  Returns the kernels' records (without launch
+    counts): F=64 float32, forward and dw, cold."""
     import torch
 
     from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.data.pipeline import DataModule
     from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import (
-        edge_sddmm, edge_sddmm_plain)
+        edge_sddmm, edge_sddmm_plain, edge_sddmm_plan)
     from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import (csr_spmm,
-                                                           csr_spmm_plain)
+                                                           csr_spmm_plain,
+                                                           csr_spmm_plan)
     from graph_hscn_tpu_torch.ops.spmm import gcn_norm_weights
 
     cfg = load_config(CONFIG)
@@ -341,29 +355,31 @@ def phase_kernels():
             x = torch.randn(n, f, device="cuda", generator=gen).to(dtype)
             xt = x.t().contiguous()
             sz = x.element_size()
+            # (name, role, kernel, plain version, arguments, bytes, plan,
+            # library call, its arguments)
             runs = [
-                ("csr_spmm", "forward", x,
-                 lambda x=x: csr_spmm(x, p.row_ptr, p.col, w),
-                 lambda x=x: csr_spmm_plain(x, p.row_ptr, p.col, w),
+                ("csr_spmm", "forward", csr_spmm, csr_spmm_plain,
+                 (x, p.row_ptr, p.col, w),
                  n * f * sz + (n + 1) * 4 + nnz * 8 + n * f * 4,
-                 lambda x=x: torch.sparse.mm(a_csr, x)),
-                ("edge_sddmm", "dw", x,
-                 lambda x=x, g=g: edge_sddmm(x, g, p.row, p.col, nnz),
-                 lambda x=x, g=g: edge_sddmm_plain(x, g, p.row, p.col, nnz),
+                 csr_spmm_plan(f, dtype), torch.sparse.mm, (a_csr, x)),
+                ("edge_sddmm", "dw", edge_sddmm, edge_sddmm_plain,
+                 (x, g, p.row, p.col, nnz),
                  n * f * sz + n * f * 4 + nnz * 8 + e * 4,
-                 lambda xt=xt, g=g: torch.sparse.sampled_addmm(
-                     a_pat, g, xt, beta=0.0)),
+                 edge_sddmm_plan(f, dtype),
+                 lambda a, g, xt: torch.sparse.sampled_addmm(a, g, xt,
+                                                             beta=0.0),
+                 (a_pat, g, xt)),
             ]
             if dtype == torch.float32:   # the backward's g is float32
                 runs.append(
-                    ("csr_spmm", "transpose", g,
-                     lambda g=g: csr_spmm(g, p.t_row_ptr, p.t_col, w_t),
-                     lambda g=g: csr_spmm_plain(g, p.t_row_ptr, p.t_col,
-                                                w_t),
-                     n * f * 4 + (n + 1) * 4 + nnz * 8 + n * f * 4,
-                     lambda g=g: torch.sparse.mm(at_csr, g)))
-            for name, role, inp, kern, plain, nbytes, lib in runs:
-                out, ref = kern(), plain()
+                    ("csr_spmm", "transpose", csr_spmm, csr_spmm_plain,
+                     (g, p.t_row_ptr, p.t_col, w, p.t_order),
+                     n * f * 4 + (n + 1) * 4 + nnz * 16 + n * f * 4,
+                     csr_spmm_plan(f, dtype), torch.sparse.mm,
+                     (at_csr, g)))
+            for name, role, kern, plain, args, nbytes, plan, lib, lib_args \
+                    in runs:
+                out, ref = kern(*args), plain(*args)
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max())
                 tol = 1e-5 * max(float(ref.abs().max()), 1.0)
@@ -371,11 +387,15 @@ def phase_kernels():
                     fail(f"{name} {role} F={f} {dtype}: max |err| {err:.3e} "
                          f"> tolerance {tol:.3e}")
                 worst[name] = max(worst[name], err)
-                lib_ms, why = (library_ms(lib) if dtype == torch.float32
-                               else (None, "float32 only"))
+                lib_ms, why = None, "float32 only"
+                if dtype == torch.float32:
+                    lib_ms, why = library_ms(rotating(lib, *lib_args))
                 b_ms, b_by = bound_ms(nbytes, 2.0 * nnz * f)
-                k_ms, k_host = time_ms(kern)
-                p_ms, p_host = time_ms(plain)
+                # Cold: inputs from HBM (the bound's premise); warm: the
+                # same inputs call after call, left in the L2.
+                k_ms, k_host = time_ms(rotating(kern, *args))
+                warm_ms, _ = time_ms(lambda k=kern, a=args: k(*a))
+                p_ms, p_host = time_ms(rotating(plain, *args))
                 case = dict(name=name, role=role, f=f,
                             dtype=str(dtype).replace("torch.", ""),
                             max_abs_err=err, tol=tol, ms=k_ms,
@@ -384,13 +404,24 @@ def phase_kernels():
                 cases.append(case)
                 print(f"[kernels] {name:10s} {role:9s} F={f:2d} "
                       f"{case['dtype']:8s} err {err:.2e} (tol {tol:.1e}) "
-                      f"device: kernel {k_ms * 1e3:7.2f} us  plain "
-                      f"{p_ms * 1e3:7.2f} us  library "
+                      f"device, cold L2: kernel {k_ms * 1e3:7.2f} us "
+                      f"({b_ms / k_ms:.2f} of bound)  plain "
+                      f"{p_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us "
+                      f"({b_by})  library "
                       + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
                          else f"n/a ({why})")
-                      + f"  bound {b_ms * 1e3:5.2f} us ({b_by}); host a "
+                      + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a "
                       f"call: kernel {k_host * 1e3:6.2f} us  plain "
-                      f"{p_host * 1e3:6.2f} us", flush=True)
+                      f"{p_host * 1e3:6.2f} us; plan {plan.label()}",
+                      flush=True)
+                if (f, case["dtype"], role) in ((64, "float32", "forward"),
+                                                (64, "float32", "dw")):
+                    print(f"[kernels] {name} F=64 float32: cold "
+                          f"{k_ms * 1e3:.2f} us against half its bound's "
+                          f"target {2 * b_ms * 1e3:.2f} us: "
+                          + ("met" if k_ms <= 2 * b_ms else "NOT met"),
+                          flush=True)
+    kernel_floors(p)
     records = {}
     for c in cases:   # the record of each kernel: F=64 float32, main role
         if (c["f"], c["dtype"]) == (64, "float32") and c["role"] in (
@@ -407,6 +438,50 @@ def phase_kernels():
          "replaces": "graph_hscn_tpu/ops/pallas/sddmm_kernel.py:32",
          **_timing(records["edge_sddmm"], worst["edge_sddmm"])},
     ]
+
+
+def kernel_floors(p) -> None:
+    """What a csr_spmm or edge_sddmm launch costs before its feature bytes,
+    under the timer of the kernels' rows: the launch alone (a 1-row plan
+    with no edge; one edge of one 64-value row, warm), and the index chain
+    with almost no feature bytes (F = 1 on the VOC plan ``p``, cold).
+    These launches are held against their plain versions too."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import (
+        edge_sddmm, edge_sddmm_plain)
+    from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import (csr_spmm,
+                                                           csr_spmm_plain)
+
+    n, nnz = p.num_nodes, p.num_edges
+    zero = torch.zeros(2, dtype=torch.int32, device="cuda")
+    one = zero[:1]
+    x1 = torch.randn(1, 64, device="cuda")
+    x = torch.randn(n, 1, device="cuda")
+    w = torch.rand(p.col.numel(), device="cuda")
+    floors = [
+        ("csr_spmm", "launch alone (1 row, no edge, F=64)", False, csr_spmm,
+         csr_spmm_plain, (x1, zero, one[:0], w[:0])),
+        ("edge_sddmm", "launch alone (1 edge, F=64)", False, edge_sddmm,
+         edge_sddmm_plain, (x1, x1, one, one, 1)),
+        ("csr_spmm", "index chain (VOC plan, F=1)", True, csr_spmm,
+         csr_spmm_plain, (x, p.row_ptr, p.col, w)),
+        ("edge_sddmm", "index chain (VOC plan, F=1)", True, edge_sddmm,
+         edge_sddmm_plain, (x, x, p.row, p.col, nnz)),
+    ]
+    for name, label, cold, kern, plain, args in floors:
+        out, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max()) if ref.numel() else 0.0
+        tol = 1e-5 * max(float(ref.abs().max()) if ref.numel() else 0.0, 1.0)
+        if not out.isfinite().all() or err > tol:
+            fail(f"{name} floor {label}: max |err| {err:.3e} > tolerance "
+                 f"{tol:.3e}")
+        k_ms, host_ms = time_ms(rotating(kern, *args) if cold
+                                else lambda k=kern, a=args: k(*a))
+        print(f"[kernels] floor {name:10s} {label:36s} device "
+              f"{'cold' if cold else 'warm'}: {k_ms * 1e3:6.2f} us; host a "
+              f"call {host_ms * 1e3:6.2f} us", flush=True)
 
 
 def _timing(case: dict, worst_err: float) -> dict:
@@ -730,16 +805,17 @@ def phase_hbm():
     square 4-neighbour lattices at which the TPU routes the SpMM to its
     HBM-streamed kernels (B4a at N = 20164, B4b at N = 51076; B4c is their
     dw, edge_sddmm's function), against their plain versions and beside
-    torch.sparse.mm / sampled_addmm, all timed cold.  Same tolerances as
-    phase 3."""
+    torch.sparse.mm / sampled_addmm, all timed cold; the transpose reads
+    the weights in t_order in the kernel.  Same tolerances as phase 3."""
     import torch
 
     from graph_hscn_tpu_torch.data.synthetic import lattice_edges
     from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import (
-        edge_sddmm, edge_sddmm_plain)
+        edge_sddmm, edge_sddmm_plain, edge_sddmm_plan)
     from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import (csr_plan,
                                                            csr_spmm,
-                                                           csr_spmm_plain)
+                                                           csr_spmm_plain,
+                                                           csr_spmm_plan)
 
     f = 128
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -760,26 +836,28 @@ def phase_hbm():
             f32 = dtype == torch.float32
             xt = x.t().contiguous()
             # (name, role, kernel, plain version, their arguments, bytes,
-            # operations, library call, its arguments)
+            # operations, library call, its arguments, plan)
             runs = [
                 ("csr_spmm", "forward", csr_spmm, csr_spmm_plain,
                  (x, p.row_ptr, p.col, w),
                  n * f * sz + (n + 1) * 4 + nnz * 8 + n * f * 4,
-                 2.0 * nnz * f, torch.sparse.mm, (a_csr, x)),
+                 2.0 * nnz * f, torch.sparse.mm, (a_csr, x),
+                 csr_spmm_plan(f, dtype)),
                 ("csr_spmm", "transpose", csr_spmm, csr_spmm_plain,
-                 (x, p.t_row_ptr, p.t_col, w_t),
-                 n * f * sz + (n + 1) * 4 + nnz * 8 + n * f * 4,
-                 2.0 * nnz * f, torch.sparse.mm, (at_csr, x)),
+                 (x, p.t_row_ptr, p.t_col, w, p.t_order),
+                 n * f * sz + (n + 1) * 4 + nnz * 16 + n * f * 4,
+                 2.0 * nnz * f, torch.sparse.mm, (at_csr, x),
+                 csr_spmm_plan(f, dtype)),
                 ("edge_sddmm", "dw", edge_sddmm, edge_sddmm_plain,
                  (x, g, p.row, p.col, nnz),
                  n * f * sz + n * f * 4 + nnz * 8 + e * 4,
                  2.0 * nnz * f,
                  lambda a, g, xt: torch.sparse.sampled_addmm(a, g, xt,
                                                              beta=0.0),
-                 (a_pat, g, xt)),
+                 (a_pat, g, xt), edge_sddmm_plan(f, dtype)),
             ]
-            for name, role, kern, plain, args, nbytes, ops, lib, lib_args \
-                    in runs:
+            for (name, role, kern, plain, args, nbytes, ops, lib, lib_args,
+                 plan) in runs:
                 out, ref = kern(*args), plain(*args)
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max())
@@ -814,7 +892,14 @@ def phase_hbm():
                       + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
                          else f"n/a ({why})")
                       + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a "
-                      f"call {k_host * 1e3:6.2f} us", flush=True)
+                      f"call {k_host * 1e3:6.2f} us; plan {plan.label()}",
+                      flush=True)
+                if (name, n, f32) == ("edge_sddmm", HBM_SIDES[0] ** 2, True):
+                    print(f"[hbm] edge_sddmm N={n} F={f} float32 (B4c): cold "
+                          f"{k_ms * 1e3:.2f} us against half its bound's "
+                          f"target {2 * b_ms * 1e3:.2f} us: "
+                          + ("met" if k_ms <= 2 * b_ms else "NOT met"),
+                          flush=True)
 
 
 def csr_values_of(p, dots):
@@ -960,6 +1045,9 @@ def profile_steps(label: str, step, make_batch, steps: int = 6,
               flush=True)
 
 
+# The VOC GCN step's aggregation: the kernel, and the gathers around it.
+GCN_FOCUS = {"csr_spmm kernel": ("csr_spmm_kernel",),
+             "gathers (index_select, indexing)": ("indexSelect", "gather")}
 # The VOC GAT step's attention work: the two kernels, and the gathers left
 # around them (index_select and indexing kernels).
 GAT_FOCUS = {"spmm_mh + sddmm_mh kernels": ("spmm_mh_kernel",
@@ -1527,7 +1615,7 @@ def main() -> int:
     for k in ("spmm_mh", "sddmm_mh"):
         launches[k] = gat[k]
     launches["segment_reduce"] = gated["segment_reduce"]
-    phase_profile(CONFIG, "VOC sparse GCN")
+    phase_profile(CONFIG, "VOC sparse GCN", focus=GCN_FOCUS)
     phase_profile_peptides(PEPTIDES, "peptides unfused GCN")
     phase_profile_peptides(PEPTIDES_FUSED, "peptides fused GCN", fused=True)
     phase_profile(VOC_GAT, "VOC sparse GAT", focus=GAT_FOCUS)

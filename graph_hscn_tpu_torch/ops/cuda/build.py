@@ -36,11 +36,12 @@ _IP = ctypes.POINTER(ctypes.c_int)      # a host array of ints
 # The C signature of each kernel's entry point: (argument types); every
 # entry point returns cudaGetLastError() as an int.
 SIGNATURES = {
-    # row_ptr, col, w, x, x_bf16, out, n_rows, f, stream
-    "csr_spmm": (_P, _P, _P, _P, _I, _P, _I, _I, _P),
+    # row_ptr, col, order (or null), w, x, x_bf16, out, n_rows, f, the plan
+    # (vec, passes, lanes, batch), stream
+    "csr_spmm": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # row, col, h_src, src_bf16, h_dst, dst_bf16, out, n_edges, n_real, f,
-    # stream
-    "edge_sddmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P),
+    # the plan (vec, passes, lanes), stream
+    "edge_sddmm": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # row_ptr, col, order (or null), alpha, x, x_bf16, out, n_rows, heads,
     # c, the plan (vec, passes, lanes_per_head, lanes, row_layout, batch),
     # stream

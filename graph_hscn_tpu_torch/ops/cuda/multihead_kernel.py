@@ -37,6 +37,7 @@ import torch
 
 from graph_hscn_tpu_torch.ops.cuda import build
 from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import rows_of_slots
+from graph_hscn_tpu_torch.ops.cuda.vectors import aligned, pow2_ceil, widest
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -96,30 +97,18 @@ LANE_BYTES = 32
 KERNELS = ("spmm_mh", "sddmm_mh")
 
 
-def _pow2_ceil(v: int) -> int:
-    return 1 << max(0, v - 1).bit_length()
-
-
-def _widest(n: int, esize: int, most: int | None = None) -> int:
-    """The values in the widest vector of 16, 8, 4 or 2 bytes (at least one
-    value) whose values divide ``n`` and number at most ``most``."""
-    return next(v for v in (16 // esize, 8 // esize, 4 // esize, 2 // esize,
-                            1)
-                if v >= 1 and n % v == 0 and (most is None or v <= most))
-
-
 def _head_plan(heads: int, c: int, vec: int, vp: int,
                batch: int) -> MultiheadPlan:
     """spmm_mh's head layout: the fewest lanes a head that hold C / V
     vectors at VP a lane, within a warp of next_pow2(H) heads."""
-    slots = _pow2_ceil(heads)
-    s = min(_pow2_ceil(-(-(c // vec) // vp)), 32 // min(slots, 32))
+    slots = pow2_ceil(heads)
+    s = min(pow2_ceil(-(-(c // vec) // vp)), 32 // min(slots, 32))
     return MultiheadPlan(heads, c, vec, vp, s, min(32, s * slots), batch)
 
 
 def _row_plan(heads: int, c: int, vec: int, vp: int,
               batch: int) -> MultiheadPlan:
-    lanes = min(32, _pow2_ceil(-(-(heads * c // vec) // vp)))
+    lanes = min(32, pow2_ceil(-(-(heads * c // vec) // vp)))
     return MultiheadPlan(heads, c, vec, vp, 1, lanes, batch, row_layout=True)
 
 
@@ -150,24 +139,17 @@ def multihead_plan(kernel: str, heads: int, c: int,
     if heads < 1 or c < 1:
         raise ValueError(f"multihead_plan: {heads} heads of {c} values")
     esize = dtype.itemsize
-    vec = _widest(c, esize)
+    vec = widest(c, esize)
     if kernel == "sddmm_mh":
-        vp = min(4, _pow2_ceil(c // vec)) if esize == 4 and vec == 4 else 1
+        vp = min(4, pow2_ceil(c // vec)) if esize == 4 and vec == 4 else 1
         return MultiheadPlan(heads, c, vec, vp, 1, 1)
-    row = heads == 4 and _widest(heads * c, esize, most=c) > vec
+    row = heads == 4 and widest(heads * c, esize, most=c) > vec
     if row:
-        vec = _widest(heads * c, esize, most=c)
+        vec = widest(heads * c, esize, most=c)
     vp = min(4, max(1, LANE_BYTES // (vec * esize)),
-             _pow2_ceil(heads * c // vec if row else c // vec))
+             pow2_ceil(heads * c // vec if row else c // vec))
     batch = 1 if vp * vec * esize >= LANE_BYTES else 4
     return (_row_plan if row else _head_plan)(heads, c, vec, vp, batch)
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where its data is not 16-byte aligned (a view
-    that starts inside its storage): the kernels load 16-byte vectors (and
-    spmm_mh's row layout an edge's four weights as one)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def spmm_mh_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -229,7 +211,7 @@ def spmm_mh(x: torch.Tensor, alpha: torch.Tensor, row_ptr: torch.Tensor,
         raise TypeError(f"spmm_mh: order {order.dtype} "
                         f"{tuple(order.shape)} (int64 [{col.numel()}])")
     c = x.shape[1] // heads
-    x, alpha = _aligned(x), _aligned(alpha)
+    x, alpha = aligned(x), aligned(alpha)
     plan = multihead_plan("spmm_mh", heads, c, x.dtype)
     out = torch.empty(n, x.shape[1], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -290,7 +272,7 @@ def sddmm_mh(h_src: torch.Tensor, h_dst: torch.Tensor, row: torch.Tensor,
     if col.shape[0] != n_edges or not 0 <= num_real <= n_edges:
         raise ValueError("sddmm_mh: row/col lengths or num_real disagree")
     c = h_src.shape[1] // heads
-    h_src, h_dst = _aligned(h_src), _aligned(h_dst)
+    h_src, h_dst = aligned(h_src), aligned(h_dst)
     plan = multihead_plan(
         "sddmm_mh", heads, c, torch.bfloat16 if torch.bfloat16 in (
             h_src.dtype, h_dst.dtype) else torch.float32)

@@ -7,16 +7,53 @@ backward it is the edge-weight gradient ``dw[e] = <x[send e], g[recv e]>``.
 
 :func:`edge_sddmm` is the kernel's wrapper (``csrc/edge_sddmm.cu``): on a
 CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-:func:`edge_sddmm_plain`, the same function in plain PyTorch.
+:func:`edge_sddmm_plain`, the same function in plain PyTorch.  Its launch
+plan comes from :func:`edge_sddmm_plan`, a pure function of (F, the
+narrower operand's dtype).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from graph_hscn_tpu_torch.ops.cuda import build
+from graph_hscn_tpu_torch.ops.cuda.vectors import (RowPlan, aligned,
+                                                   pow2_ceil, widest)
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+# A lane of edge_sddmm takes at most this many values of each row a chunk,
+# as at most MAX_PASSES vectors.
+LANE_VALUES = 16
+MAX_PASSES = 8
+# The most lanes an edge.
+MAX_LANES = 8
+
+
+@functools.lru_cache(maxsize=512)
+def edge_sddmm_plan(f: int, dtype: torch.dtype) -> RowPlan:
+    """The launch plan ``edge_sddmm`` runs with for rows of ``f`` values,
+    ``dtype`` the narrower operand's (bfloat16 where either is): a pure
+    function of the two, cached (the wrapper asks at every call).
+
+    V is the widest vector of 16, 8, 4 or 2 bytes whose values divide F;
+    a group of L lanes an edge (1, 2, 4 or 8), the fewest that take the
+    row at LANE_VALUES values a lane; each lane VP vectors of each row at
+    once (LANE_VALUES values and MAX_PASSES vectors at most), the fewest
+    powers of two that cover the row over L lanes, else in chunks.  At the
+    VOC GCN widths, float32: F=64 -> 4 lanes an edge, 4 float4s each;
+    F=21 -> 2 lanes, 8 scalars each, two chunks; F=128 -> 8 lanes, 4
+    float4s each."""
+    if f < 1:
+        raise ValueError(f"edge_sddmm_plan: a row of {f} values")
+    vec = widest(f, dtype.itemsize)
+    lanes = min(MAX_LANES, pow2_ceil(-(-f // LANE_VALUES)))
+    vp = min(MAX_PASSES, LANE_VALUES // vec,
+             pow2_ceil(-(-(f // vec) // lanes)))
+    return RowPlan(f, vec, vp, lanes)
 
 
 def edge_sddmm_plain(h_src: torch.Tensor, h_dst: torch.Tensor,
@@ -54,14 +91,18 @@ def edge_sddmm(h_src: torch.Tensor, h_dst: torch.Tensor, row: torch.Tensor,
     n_edges = row.shape[0]
     if col.shape[0] != n_edges or not 0 <= num_real <= n_edges:
         raise ValueError("edge_sddmm: row/col lengths or num_real disagree")
+    f = h_src.shape[1]
+    plan = edge_sddmm_plan(f, torch.bfloat16 if torch.bfloat16 in (
+        h_src.dtype, h_dst.dtype) else torch.float32)
+    h_src, h_dst = aligned(h_src), aligned(h_dst)
     out = torch.empty(n_edges, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = build.load("edge_sddmm").edge_sddmm(
             row.data_ptr(), col.data_ptr(),
             h_src.data_ptr(), int(h_src.dtype == torch.bfloat16),
             h_dst.data_ptr(), int(h_dst.dtype == torch.bfloat16),
-            out.data_ptr(), n_edges, num_real, h_src.shape[1],
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), n_edges, num_real, f, plan.vec, plan.passes,
+            plan.lanes, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"edge_sddmm launch failed: CUDA error {rc}")
     edge_sddmm.launches += 1

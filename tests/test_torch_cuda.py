@@ -91,9 +91,21 @@ def batch():
     return b
 
 
-@pytest.mark.parametrize("f", [64, 21, 1, 130])
+# Widths that reach every launch plan csr_spmm and edge_sddmm build, in
+# float32 and bfloat16 (held so by tests/test_torch_spmm_plan.py): the VOC
+# GCN path's 64 and 21, the lattices' 128, and widths for the narrower
+# vectors, the passes, the lane groups and the edges in flight (1 to 136).
+ROW_WIDTHS = [1, 2, 3, 4, 6, 8, 9, 18, 21, 34, 36, 64, 65, 66, 68, 128, 129,
+              130, 132, 136]
+
+
+@pytest.mark.parametrize("f", ROW_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_csr_spmm_matches_plain(batch, f, dtype):
+    """Every plan: the forward, and the transpose with the weights gathered
+    beforehand and with them read in t_order by the kernel (order), against
+    the plain version on w[t_order]; each twice, bit for bit (a fixed
+    summation order); one launch a call."""
     need_card()
     p = batch.spmm.to("cuda")
     n = p.num_nodes
@@ -101,32 +113,41 @@ def test_csr_spmm_matches_plain(batch, f, dtype):
     x = torch.randn(n, f, device="cuda", generator=gen).to(dtype)
     w = torch.rand(p.col.numel(), device="cuda", generator=gen)
     before = csr_spmm.launches
-    for rp, col, ww in ((p.row_ptr, p.col, w),
-                        (p.t_row_ptr, p.t_col, w[p.t_order])):
-        out = csr_spmm(x, rp, col, ww)
+    for rp, col, ww, order in ((p.row_ptr, p.col, w, None),
+                               (p.t_row_ptr, p.t_col, w[p.t_order], None),
+                               (p.t_row_ptr, p.t_col, w, p.t_order)):
+        out = csr_spmm(x, rp, col, ww, order)
         torch.cuda.synchronize()
         assert out.dtype == torch.float32 and out.shape == (n, f)
-        assert_close(out, csr_spmm_plain(x, rp, col, ww))
-    assert csr_spmm.launches == before + 2
+        ref_w = ww if order is None else ww[order]
+        assert_close(out, csr_spmm_plain(x, rp, col, ref_w))
+        assert torch.equal(out, csr_spmm(x, rp, col, ww, order))
+    assert csr_spmm.launches == before + 6
 
 
+@pytest.mark.parametrize("f", ROW_WIDTHS)
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.float32),
                                     (torch.float32, torch.bfloat16),
                                     (torch.bfloat16, torch.bfloat16)])
-def test_edge_sddmm_matches_plain(batch, dtypes):
+def test_edge_sddmm_matches_plain(batch, f, dtypes):
+    """Every plan and every pair of operand dtypes (the plan is the
+    narrower operand's); the padding edges are 0; twice, bit for bit; one
+    launch a call."""
     need_card()
     p = batch.spmm.to("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    hs = torch.randn(p.num_nodes, 64, device="cuda", generator=gen)
-    hd = torch.randn(p.num_nodes, 64, device="cuda", generator=gen)
+    gen = torch.Generator(device="cuda").manual_seed(200 + f)
+    hs = torch.randn(p.num_nodes, f, device="cuda", generator=gen)
+    hd = torch.randn(p.num_nodes, f, device="cuda", generator=gen)
     hs, hd = hs.to(dtypes[0]), hd.to(dtypes[1])
     before = edge_sddmm.launches
     out = edge_sddmm(hs, hd, p.row, p.col, p.num_edges)
     torch.cuda.synchronize()
     assert edge_sddmm.launches == before + 1
+    assert out.shape == (p.col.numel(),)
     assert_close(out, edge_sddmm_plain(hs, hd, p.row, p.col, p.num_edges))
     assert not out[p.num_edges:].any()
+    assert torch.equal(out, edge_sddmm(hs, hd, p.row, p.col, p.num_edges))
 
 
 @pytest.mark.parametrize("weight_needs_grad", [False, True])
@@ -181,6 +202,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(batch):
         csr_spmm(x, p.row_ptr.cpu(), p.col, w)
     with pytest.raises(TypeError):
         edge_sddmm(x.half(), x, p.row, p.col, p.num_edges)
+
+
+@pytest.mark.parametrize("f", [21, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csr_kernels_on_hub_and_empty_rows(f, dtype):
+    """A row of 100 edges on each side of the plan (several rounds of a
+    lane group's index loads), a plan whose every other row has no edge,
+    and one with no edge at all: csr_spmm (forward, and transpose with
+    order) and edge_sddmm against their plain versions; empty rows are
+    zeros."""
+    need_card()
+    p = hub_plan(hub_edges=100)
+    assert int((p.row_ptr[1:] - p.row_ptr[:-1]).max()) >= 100
+    assert int((p.t_row_ptr[1:] - p.t_row_ptr[:-1]).max()) >= 100
+    n, e = p.num_nodes, p.col.numel()
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    x = torch.randn(n, f, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(n, f, device="cuda", generator=gen)
+    w = torch.rand(e, device="cuda", generator=gen)
+    assert_close(csr_spmm(x, p.row_ptr, p.col, w),
+                 csr_spmm_plain(x, p.row_ptr, p.col, w))
+    assert_close(csr_spmm(x, p.t_row_ptr, p.t_col, w, p.t_order),
+                 csr_spmm_plain(x, p.t_row_ptr, p.t_col, w[p.t_order]))
+    dots = edge_sddmm(x, g, p.row, p.col, p.num_edges)
+    assert_close(dots, edge_sddmm_plain(x, g, p.row, p.col, p.num_edges))
+    assert not dots[p.num_edges:].any()
+    # Every other row keeps no edge: the CSR of the rows' first edges.
+    counts = (p.row_ptr[1:] - p.row_ptr[:-1]).clone()
+    counts[::2] = 0
+    sparse_ptr = torch.zeros_like(p.row_ptr)
+    sparse_ptr[1:] = counts.cumsum(0)
+    keep = torch.repeat_interleave(counts > 0, p.row_ptr[1:]
+                                   - p.row_ptr[:-1])
+    col = p.col.clone()   # slots past sparse_ptr[N] are not read
+    col[:int(sparse_ptr[-1])] = p.col[:p.num_edges][keep]
+    out = csr_spmm(x, sparse_ptr, col, w)
+    assert_close(out, csr_spmm_plain(x, sparse_ptr, col, w))
+    assert not out[counts == 0].any()
+    empty = csr_spmm(x, torch.zeros_like(p.row_ptr), p.col, w)
+    torch.cuda.synchronize()
+    assert empty.shape == (n, f) and not empty.any()
+
+
+def test_csr_kernels_take_views_that_are_not_16_byte_aligned(batch):
+    """x (and edge_sddmm's operands) as contiguous views 4 bytes into
+    their storage: the wrappers copy them to aligned memory, and the
+    results match the plain versions."""
+    need_card()
+    p = batch.spmm.to("cuda")
+    n, f = p.num_nodes, 64
+    store = torch.randn(n * f + 1, device="cuda")
+    x = store[1:].view(n, f)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    w = torch.rand(p.col.numel(), device="cuda")
+    assert_close(csr_spmm(x, p.row_ptr, p.col, w),
+                 csr_spmm_plain(x, p.row_ptr, p.col, w))
+    assert_close(csr_spmm(x, p.t_row_ptr, p.t_col, w, p.t_order),
+                 csr_spmm_plain(x, p.t_row_ptr, p.t_col, w, p.t_order))
+    assert_close(edge_sddmm(x, x, p.row, p.col, p.num_edges),
+                 edge_sddmm_plain(x, x, p.row, p.col, p.num_edges))
 
 
 def test_run_experiment_on_the_card_launches_the_kernel():
