@@ -45,7 +45,11 @@ Phases; any failure exits non-zero:
                  on the 142 x 142 and 226 x 226 lattices (N=20164 and 51076),
                  the sizes at which the TPU takes its HBM-streamed kernels
                  (B4a-c), beside torch.sparse.mm / sampled_addmm, each
-                 with its launch plan.
+                 with its launch plan;
+               - csr_spmm at the VOC sparse HSCN batch (N=5072, 19456 edge
+                 slots, F=32 float32, the ll GCNConv's width): forward and
+                 transpose (order), each with its launch plan, timed cold
+                 with the warm time beside, its bound and torch.sparse.mm.
                Device times: CUDA events over calls queued behind a device
                sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
@@ -60,27 +64,35 @@ Phases; any failure exits non-zero:
                configs/GCN/peptides_func_GCN_fused.yaml,
                configs/GAT/voc_superpixels_GAT_sparse.yaml,
                configs/GAT/peptides_func_GAT.yaml,
-               configs/GatedGCN/voc_superpixels_GatedGCN_sparse.yaml and
-               configs/GatedGCN/peptides_struct_GatedGCN.yaml: finite
-               losses, and every kernel's launch count from that run alone
-               (VOC GCN: 8 csr_spmm a train step, 4 an eval batch; fused
-               peptides: one fused_gcn_fwd a train step and an eval batch,
-               one fused_gcn_bwd a train step; VOC GAT: 16 spmm_mh + 12
-               sddmm_mh a train step, 4 + 8 an eval batch; VOC GatedGCN: 20
-               segment_reduce a train step, 8 an eval batch; the unfused
-               peptides configs: none).  Then a torch.profiler window over
-               steady train steps of each sparse VOC path and the four
-               peptides paths (device busy time, idle share, device
-               operations, kernels by time; VOC GCN and GAT: their kernels'
-               and the gathers' device time a step); then each sparse VOC model and the fused stack at
+               configs/GatedGCN/voc_superpixels_GatedGCN_sparse.yaml,
+               configs/GatedGCN/peptides_struct_GatedGCN.yaml, and the
+               HSCN pipeline (clustering and HSCN, 2 epochs each) on
+               configs/HSCN/voc_superpixels_HSCN_sparse.yaml and the four
+               shipped single-device HSCN configs: finite losses (the
+               clustering's too), and every kernel's launch count from
+               that run alone (VOC GCN: 8 csr_spmm a train step, 4 an eval
+               batch; fused peptides: one fused_gcn_fwd a train step and an
+               eval batch, one fused_gcn_bwd a train step; VOC GAT: 16
+               spmm_mh + 12 sddmm_mh a train step, 4 + 8 an eval batch; VOC
+               GatedGCN: 20 segment_reduce a train step, 8 an eval batch;
+               VOC sparse HSCN: 6 csr_spmm a train step, 3 an eval batch;
+               the unfused peptides configs and the shipped HSCN configs:
+               none; no launch while clustering).  Then a torch.profiler
+               window over steady train steps of each sparse VOC path, the
+               four peptides paths and two HSCN paths (device busy time,
+               idle share, device operations, kernels by time; VOC GCN,
+               GAT and HSCN: their kernels' and the gathers' device time a
+               step); then each sparse VOC model and the fused stack at
                full width on a 4-graph batch, on the card and on the CPU:
-               logits and gradients agree.
+               logits and gradients agree; for the VOC sparse HSCN (virtual
+               feedback on) its SCN's assignments too.
 The last three lines are the {"kernels": [...]} record, nvidia-smi's line, and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -103,6 +115,11 @@ VOC_GATED = (REPO / "configs" / "GatedGCN"
              / "voc_superpixels_GatedGCN_sparse.yaml")
 PEPTIDES_GATED = (REPO / "configs" / "GatedGCN"
                   / "peptides_struct_GatedGCN.yaml")
+VOC_HSCN = REPO / "configs" / "HSCN" / "voc_superpixels_HSCN_sparse.yaml"
+PEPTIDES_HSCN = REPO / "configs" / "HSCN" / "peptides_func_HSCN.yaml"
+SHIPPED_HSCN = [REPO / "configs" / "HSCN" / f"{name}.yaml" for name in (
+    "peptides_func_HSCN", "peptides_func_HSCN_parity",
+    "peptides_func_HSCN_feedback", "voc_superpixels_HSCN")]
 HBM_SIDES = (142, 226)   # lattices of N = 20164 and 51076 (B4a, B4b sizes)
 EPOCHS = 2
 FUSED_SEED = 20261016   # the seeded-dropout case's Philox key
@@ -913,6 +930,80 @@ def csr_values_of(p, dots):
     return dots[:nnz][torch.argsort(rows * n + p.col[:nnz].long())]
 
 
+def hscn_data(path: Path):
+    """(cfg, dm) of an HSCN config, each graph's cluster ids drawn from a
+    seeded generator (an HSCN step's shapes and work do not depend on
+    them)."""
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+
+    cfg = load_config(path)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    rng = np.random.default_rng(0)
+    k = cfg.hscn.num_clusters
+    dm.graphs = [g.replace(cluster=rng.integers(0, k, g.num_nodes).astype(
+        np.int32)) for g in dm.graphs]
+    return cfg, dm
+
+
+def phase_hscn_kernels() -> None:
+    """csr_spmm (B1) at the VOC sparse HSCN batch, the width of its ll
+    GCNConv (F = hidden 32, float32, gcn-normalized weights without self
+    loops): the forward and the transpose (the weights read in t_order by
+    the kernel), each against its plain version (1e-5 * max|ref|), with its
+    launch plan, timed cold (``rotating``) with the warm time beside, its
+    bound, the plain version's and torch.sparse.mm's times."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import (csr_spmm,
+                                                           csr_spmm_plain,
+                                                           csr_spmm_plan)
+    from graph_hscn_tpu_torch.ops.spmm import gcn_norm_weights
+
+    cfg, dm = hscn_data(VOC_HSCN)
+    dm.with_spmm_plan = True    # the first train batch, as the fit packs it
+    b = next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda")
+    p = b.spmm
+    n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
+    f = cfg.hscn.hidden_channels
+    w, _ = gcn_norm_weights(b.senders, b.receivers, b.edge_mask, n,
+                            add_self_loops=False)
+    a_csr = csr_tensor(p.row_ptr, p.col, w)
+    at_csr = csr_tensor(p.t_row_ptr, p.t_col, w.index_select(0, p.t_order))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(n, f, device="cuda", generator=gen)
+    g = torch.randn(n, f, device="cuda", generator=gen)
+    plan = csr_spmm_plan(f, torch.float32)
+    print(f"[kernels] VOC HSCN batch: N={n} E={e} real edges={nnz} "
+          f"graphs={b.num_graphs_padded} F={f}", flush=True)
+    for role, args, nbytes, lib_args in (
+            ("forward", (x, p.row_ptr, p.col, w),
+             n * f * 4 + (n + 1) * 4 + nnz * 8 + n * f * 4, (a_csr, x)),
+            ("transpose", (g, p.t_row_ptr, p.t_col, w, p.t_order),
+             n * f * 4 + (n + 1) * 4 + nnz * 16 + n * f * 4, (at_csr, g))):
+        out, ref = csr_spmm(*args), csr_spmm_plain(*args)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = 1e-5 * max(float(ref.abs().max()), 1.0)
+        if not out.isfinite().all() or err > tol:
+            fail(f"csr_spmm VOC HSCN {role} F={f}: max |err| {err:.3e} > "
+                 f"tolerance {tol:.3e}")
+        lib_ms, why = library_ms(rotating(torch.sparse.mm, *lib_args))
+        b_ms, b_by = bound_ms(nbytes, 2.0 * nnz * f)
+        k_ms, k_host = time_ms(rotating(csr_spmm, *args))
+        warm_ms, _ = time_ms(lambda a=args: csr_spmm(*a))
+        p_ms, _ = time_ms(rotating(csr_spmm_plain, *args))
+        print(f"[kernels] VOC HSCN csr_spmm {role:9s} F={f} float32 err "
+              f"{err:.2e} (tol {tol:.1e}) device, cold L2: kernel "
+              f"{k_ms * 1e3:7.2f} us ({b_ms / k_ms:.2f} of bound)  plain "
+              f"{p_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us ({b_by})  "
+              "library (torch.sparse.mm) "
+              + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
+                 else f"n/a ({why})")
+              + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
+              f"{k_host * 1e3:6.2f} us; plan {plan.label()}", flush=True)
+
+
 def all_kernels():
     """Every kernel wrapper of the port, each with its launch counter."""
     from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (sddmm_mh,
@@ -940,15 +1031,28 @@ def train_run(path: Path, expected) -> dict:
     cfg = load_config(path)
     cfg.training.epochs = EPOCHS
     cfg.training.eval_period = 1
+    if cfg.hscn is not None:
+        cfg.hscn.cluster_epochs = EPOCHS
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
+    clustering: dict = {}
     t0 = time.perf_counter()
-    result = run_experiment(cfg, step_timing=True)
+    with launches_while_clustering(kernels, clustering):
+        result = run_experiment(cfg, step_timing=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    if cfg.hscn is not None:
+        cl = result.cluster_losses
+        print(f"[train] {path.name}: clustering {len(cl)} epochs, losses "
+              f"{cl}; launches while clustering {clustering}", flush=True)
+        if len(cl) != EPOCHS or not all(math.isfinite(v) for v in cl):
+            fail(f"{path.name}: clustering losses {cl}")
+        if not clustering or any(clustering.values()):
+            fail(f"{path.name}: kernel launches while clustering: "
+                 f"{clustering} (the clustering batches carry no plan)")
     steps, evals = result.num_train_steps, result.num_eval_batches
     want = dict.fromkeys(launches, 0)
     want.update(expected(cfg, steps, evals))
@@ -970,6 +1074,41 @@ def train_run(path: Path, expected) -> dict:
     for h in result.history:
         print(f"[train] {h}")
     return launches
+
+
+@contextlib.contextmanager
+def launches_while_clustering(kernels, into: dict):
+    """Within the block, the HSCN pipeline's clustering trainers add each
+    kernel's launches during their run to ``into``."""
+    from graph_hscn_tpu_torch import hscn_pipeline
+    names = ("train_clustering", "train_clustering_device")
+    originals = {n: getattr(hscn_pipeline, n) for n in names}
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            before = {k.__name__: k.launches for k in kernels}
+            out = fn(*args, **kwargs)
+            for k in kernels:
+                into[k.__name__] = (into.get(k.__name__, 0) + k.launches
+                                    - before[k.__name__])
+            return out
+        return run
+
+    for n, fn in originals.items():
+        setattr(hscn_pipeline, n, counted(fn))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(hscn_pipeline, n, fn)
+
+
+def voc_hscn_launches(cfg, steps, evals):
+    """The sparse HSCN: csr_spmm forward and dx in each layer's ll GCNConv
+    in a train step, forward in an eval batch (the lv and vv relations take
+    plain ops; clustering, run before, launches nothing)."""
+    layers = cfg.hscn.num_layers
+    return {"csr_spmm": 2 * layers * steps + layers * evals}
 
 
 def voc_gcn_launches(cfg, steps, evals):
@@ -1554,6 +1693,160 @@ def phase_profile_peptides(path: Path, label: str, fused: bool = False):
     profile_steps(label, step, lambda i: assemble(ds, rows[i % len(rows)]))
 
 
+def phase_profile_hscn(path: Path, label: str, focus: dict | None = None):
+    """An HSCN train step under the profiler, on its config's route: the
+    VOC sparse twin's host batches (moved to the card, the CSR plan
+    attached), or a peptides config's device dataset (the batch assembled
+    on the card).  Cluster ids come from a seeded draw (``hscn_data``), not
+    a clustering run."""
+    import torch
+
+    from graph_hscn_tpu_torch.models.hscn import build_hscn
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
+                                                        assemble,
+                                                        epoch_permutation)
+    from graph_hscn_tpu_torch.train.loop import make_train_step
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    cfg, dm = hscn_data(path)
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    node_level = dm.task_level == "node"
+    model = build_hscn(cfg.hscn, dm.num_features, dm.num_classes,
+                       readout="none" if node_level else "mean",
+                       generator=torch.Generator().manual_seed(0)).cuda()
+    opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                          cfg.optim.lr, cfg.optim.weight_decay)
+    step, _ = make_train_step(model, opt, cfg.training.loss_fn,
+                              node_level=node_level)
+    if cfg.runtime.device_dataset == "off":
+        dm.with_spmm_plan = True
+        batches = list(dm.train_batches(epoch_seed=dm.seed))
+
+        def make_batch(i):
+            return batches[i % len(batches)].to("cuda")
+    else:
+        if not dm.enable_dense_slots():
+            fail(f"{path.name}: the graphs do not fit dense slots")
+        ds = DeviceDataset.build(dm.graphs, slot=dm.slot_nodes,
+                                 device="cuda", with_cluster=True)
+        rows = torch.as_tensor(epoch_permutation(
+            ds.num_graphs, cfg.data.batch_size, 0), device="cuda")
+
+        def make_batch(i):
+            return assemble(ds, rows[i % len(rows)])
+    profile_steps(label, step, make_batch, focus=focus)
+
+
+def phase_reference_hscn():
+    """The VOC sparse HSCN at full width on a 4-graph batch, card (csr_spmm)
+    against CPU (its plain version), with virtual_feedback on and nonzero
+    VLDense weights, so that the lv and vv relations reach the logits:
+    logits and every parameter gradient within 1e-4 * max|ref|.  First its
+    SCN, the same weights on both sides, on the batch as clustering packs
+    it (no plan): s, mc_loss and o_loss within 1e-4 * max|ref|, and equal
+    assignments on every node whose top two values differ by more than
+    1e-5; the HSCN batch carries the CPU's assignments."""
+    import torch
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.models.hscn import build_hscn
+    from graph_hscn_tpu_torch.models.scn import build_scn
+    from graph_hscn_tpu_torch.ops import spmm
+    from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.loss import criterion
+
+    cfg = load_config(VOC_HSCN)
+    cfg.hscn.virtual_feedback = True
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    dm = DataModule.from_config(cfg.data)
+    graphs = dm.split("val")[:4]
+    budget = PadBudget.for_dataset(graphs, 4)
+    max_nodes = ((dm.max_nodes_per_graph() + 7) // 8) * 8
+    gen = torch.Generator().manual_seed(2)
+    scn = build_scn(cfg.hscn, dm.num_features, max_nodes, generator=gen)
+    plain = pack_batch(graphs, budget)
+    outs = {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            outs[dev] = [t.cpu() for t in copy.deepcopy(scn).to(dev)(
+                plain.to(dev))]
+    for ref, got, what in zip(outs["cpu"], outs["cuda"],
+                              ("s", "mc_loss", "o_loss")):
+        err = float((got - ref).abs().max())
+        tol = 1e-4 * max(float(ref.abs().max()), 1e-3)
+        if not got.isfinite().all() or err > tol:
+            fail(f"SCN {what} card vs CPU: max |err| {err:.3e} > {tol:.3e}")
+    mask = torch.as_tensor(plain.node_mask)
+    s_cpu, s_card = outs["cpu"][0][mask], outs["cuda"][0][mask]
+    top = s_cpu.topk(2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) > 1e-5
+    same = s_cpu.argmax(-1) == s_card.argmax(-1)
+    if not same[clear].all():
+        fail(f"SCN assignments differ on {int((~same[clear]).sum())} nodes "
+             "with a clear top-2 gap")
+    assign = s_cpu.argmax(-1).numpy().astype(np.int32)
+    sizes = np.cumsum([0] + [g.num_nodes for g in graphs])
+    graphs = [g.replace(cluster=assign[a:b])
+              for g, a, b in zip(graphs, sizes[:-1], sizes[1:])]
+    print(f"[reference] SCN, 4-graph VOC batch: s and losses agree with the "
+          f"CPU; assignments equal on {int(clear.sum())} of {len(assign)} "
+          f"nodes with a clear top-2 gap ({int(same.sum())} equal in all), "
+          f"{len(set(assign.tolist()))} clusters used", flush=True)
+
+    batch = pack_batch(graphs, budget, with_spmm_plan=True)
+    model = build_hscn(cfg.hscn, dm.num_features, dm.num_classes,
+                       readout="none", generator=gen)
+    with torch.no_grad():
+        for vl in model.vl:
+            vl.weight.normal_(0.0, 0.3, generator=gen)
+    model.eval()
+    grads = {}
+    prev = spmm.get_backend()
+    spmm.set_backend("pallas")    # the kernel path, plain versions on CPU
+    try:
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            b = batch.to(dev)
+            before = csr_spmm.launches
+            logits = m(b)
+            loss, _ = criterion(cfg.training.loss_fn, logits, b.node_y,
+                                b.node_mask)
+            names, params = zip(*m.named_parameters())
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+            grads[dev] = [logits.detach()] + [
+                torch.zeros_like(q) if g is None else g
+                for q, g in zip(params, gs)]
+            launched = csr_spmm.launches - before
+    finally:
+        spmm.set_backend(prev)
+    want = 2 * cfg.hscn.num_layers
+    if launched != want:
+        fail(f"HSCN reference on the card: {launched} csr_spmm launches, "
+             f"want {want}")
+    worst = 0.0
+    for name, ref, got in zip(("logits",) + names, grads["cpu"],
+                              grads["cuda"]):
+        err = float((got.cpu() - ref).abs().max())
+        tol = 1e-4 * max(float(ref.abs().max()), 1e-3)
+        if not got.isfinite().all() or err > tol:
+            fail(f"VOC sparse HSCN {name} card vs CPU: max |err| {err:.3e} "
+                 f"> {tol:.3e}")
+        worst = max(worst, err / max(float(ref.abs().max()), 1e-3))
+    live = [n for n, g in zip(names, grads["cpu"][1:])
+            if n.startswith(("lv.0.", "vv.0.")) and g.abs().max() > 0]
+    if not live:
+        fail("VOC sparse HSCN with feedback: no gradient reaches lv/vv")
+    print(f"[reference] {VOC_HSCN.name}, 4-graph batch "
+          f"(N={batch.num_nodes_padded}, virtual_feedback on, VLDense "
+          f"nonzero): logits and {len(names)} gradients agree with the CPU, "
+          f"worst relative error {worst:.2e}; {launched} csr_spmm launches "
+          f"on the card; nonzero gradients reach {live}", flush=True)
+
+
 def phase_reference_fused():
     """The full-width FusedDenseGCN on a 4-graph peptides batch: the card
     (kernels) against the CPU (plain versions), logits and every parameter
@@ -1602,6 +1895,7 @@ def main() -> int:
     kernels = (phase_kernels() + phase_fused_kernels(build_logs)
                + phase_gat_kernels() + phase_gatedgcn_kernels())
     phase_hbm()
+    phase_hscn_kernels()
     # Each path's launches, counted from its own run alone.
     launches = train_run(CONFIG, voc_gcn_launches)
     train_run(PEPTIDES, no_launches)
@@ -1615,6 +1909,10 @@ def main() -> int:
     for k in ("spmm_mh", "sddmm_mh"):
         launches[k] = gat[k]
     launches["segment_reduce"] = gated["segment_reduce"]
+    hscn = train_run(VOC_HSCN, voc_hscn_launches)
+    for path in SHIPPED_HSCN:
+        train_run(path, no_launches)
+    launches["csr_spmm"] += hscn["csr_spmm"]
     phase_profile(CONFIG, "VOC sparse GCN", focus=GCN_FOCUS)
     phase_profile_peptides(PEPTIDES, "peptides unfused GCN")
     phase_profile_peptides(PEPTIDES_FUSED, "peptides fused GCN", fused=True)
@@ -1622,10 +1920,13 @@ def main() -> int:
     phase_profile_peptides(PEPTIDES_GAT, "peptides dense GAT")
     phase_profile(VOC_GATED, "VOC sparse GatedGCN")
     phase_profile_peptides(PEPTIDES_GATED, "peptides-struct GatedGCN")
+    phase_profile_hscn(VOC_HSCN, "VOC sparse HSCN", focus=GCN_FOCUS)
+    phase_profile_hscn(PEPTIDES_HSCN, "peptides HSCN")
     phase_reference(CONFIG)
     phase_reference_fused()
     phase_reference(VOC_GAT)
     phase_reference(VOC_GATED)
+    phase_reference_hscn()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

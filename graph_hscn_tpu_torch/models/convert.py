@@ -8,9 +8,11 @@ and ``convs.i.bias``.  A GAT ``MPNN`` keeps ``GATConv_i`` with
 ``att_dst`` and ``bias``.  A flax ``FusedDenseGCN`` keeps ``kernel_i`` [in,
 out] and ``bias_i``, and so does the port's.  A flax ``GatedGCNNet``
 keeps numbered ``Dense_k`` and ``GatedGCNConv_i`` modules, which
-:func:`gatedgcn_params_from_jax` names.  With the weights carried
-across, both packages compute the same function, which is how the tests
-hold one against the other.
+:func:`gatedgcn_params_from_jax` names; a flax ``SCN`` and ``HSCN`` keep
+theirs numbered by class in the order of creation, which
+:func:`scn_params_from_jax` and :func:`hscn_params_from_jax` follow.  With
+the weights carried across, both packages compute the same function, which
+is how the tests hold one against the other.
 """
 
 from __future__ import annotations
@@ -44,15 +46,26 @@ def mpnn_params_from_jax(params) -> dict[str, torch.Tensor]:
     return state
 
 
+def _leaves(prefix: str, leaves, names: dict) -> dict[str, torch.Tensor]:
+    """A flax module's leaves as the port's ``prefix + names[leaf]``;
+    kernels [in, out] transposed to weights [out, in], other leaves as
+    they are."""
+    if set(leaves) != set(names):
+        raise ValueError(f"unexpected flax params {sorted(leaves)} for "
+                         f"{prefix!r} (want {sorted(names)})")
+    state = {}
+    for leaf, value in leaves.items():
+        value = np.asarray(value, dtype=np.float32)
+        if leaf.startswith("kernel"):
+            value = value.T
+        state[prefix + names[leaf]] = torch.from_numpy(value.copy())
+    return state
+
+
 def _dense(prefix: str, leaves) -> dict[str, torch.Tensor]:
     """A flax Dense's kernel [in, out] and bias as the port's ``Dense``
     weight [out, in] and bias."""
-    if set(leaves) != {"kernel", "bias"}:
-        raise ValueError(f"unexpected flax Dense params {sorted(leaves)}")
-    kernel = np.asarray(leaves["kernel"], dtype=np.float32)
-    return {prefix + "weight": torch.from_numpy(kernel.T.copy()),
-            prefix + "bias": torch.from_numpy(
-                np.asarray(leaves["bias"], dtype=np.float32).copy())}
+    return _leaves(prefix, leaves, {"kernel": "weight", "bias": "bias"})
 
 
 def gated_gcn_conv_params_from_jax(params) -> dict[str, torch.Tensor]:
@@ -121,4 +134,72 @@ def fused_gcn_params_from_jax(params) -> dict[str, torch.Tensor]:
                              "holds kernel_i and bias_i only)")
         state[name] = torch.from_numpy(
             np.asarray(leaf, dtype=np.float32).copy())
+    return state
+
+
+_GAT = {"kernel_src": "weight", "att_src": "att_src", "att_dst": "att_dst",
+        "bias": "bias"}
+
+
+def scn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax SCN params (no MLP, as ``build_scn`` makes it) -> the port
+    SCN's ``state_dict``: ``GraphConv_i`` (``kernel_rel``, ``kernel_root``,
+    ``bias``) is ``convs.i``, ``Dense_0`` is ``cluster``."""
+    params = params.get("params", params)
+    state = {}
+    for name, leaves in params.items():
+        if (m := re.fullmatch(r"GraphConv_(\d+)", name)) is not None:
+            state.update(_leaves(
+                f"convs.{m.group(1)}.", leaves,
+                {"kernel_rel": "weight_rel", "kernel_root": "weight_root",
+                 "bias": "bias"}))
+        elif name == "Dense_0":
+            state.update(_dense("cluster.", leaves))
+        else:
+            raise ValueError(f"unexpected flax module {name!r} in an SCN "
+                             "(GraphConv_i and Dense_0)")
+    return state
+
+
+def hscn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax HSCN params -> the port HSCN's ``state_dict``.
+
+    flax numbers modules by one counter a class, in the order the layer
+    loop creates them: the ll relation (``GCNConv_l``, or a ``GATConv``),
+    the lv relation (``GATConv``), the vv relation (``DenseGCN_l`` or
+    ``DenseGAT_l``), ``VLDense_l`` (virtual feedback), then ``Dense_0``
+    and ``Dense_1`` for the head.  With a GAT ll relation it shares the
+    ``GATConv`` counter with lv: ``GATConv_{2l}`` is ll layer l and
+    ``GATConv_{2l+1}`` lv layer l; otherwise ``GATConv_l`` is lv layer
+    l.  lv's GATConv is the one with a ``kernel_dst`` (bipartite)."""
+    params = params.get("params", params)
+    ll_gat = any(name.startswith("GATConv_") and "kernel_dst" not in leaves
+                 for name, leaves in params.items())
+    state = {}
+    for name, leaves in params.items():
+        m = re.fullmatch(r"([A-Za-z]+)_(\d+)", name)
+        if m is None:
+            raise ValueError(f"unexpected flax module {name!r} in an HSCN")
+        kind, i = m.group(1), int(m.group(2))
+        if kind == "GCNConv":
+            state.update(_leaves(f"ll.{i}.", leaves,
+                                 {"kernel": "weight", "bias": "bias"}))
+        elif kind == "GATConv":
+            rel = "lv" if "kernel_dst" in leaves else "ll"
+            names = dict(_GAT)
+            if rel == "lv":
+                names["kernel_dst"] = "weight_dst"
+            layer = i // 2 if ll_gat else i
+            state.update(_leaves(f"{rel}.{layer}.", leaves, names))
+        elif kind == "DenseGCN":
+            state.update(_leaves(f"vv.{i}.", leaves,
+                                 {"kernel": "weight", "bias": "bias"}))
+        elif kind == "DenseGAT":
+            state.update(_leaves(f"vv.{i}.", leaves, _GAT))
+        elif kind == "VLDense":
+            state.update(_dense(f"vl.{i}.", leaves))
+        elif kind == "Dense" and i in (0, 1):
+            state.update(_dense(("pool_dense.", "head.")[i], leaves))
+        else:
+            raise ValueError(f"unexpected flax module {name!r} in an HSCN")
     return state

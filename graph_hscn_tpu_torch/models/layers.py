@@ -155,6 +155,52 @@ class GCNConv(nn.Module):
         return F.pad(out, (0, 0, 0, n - out.shape[0]))
 
 
+class GraphConv(nn.Module):
+    """PyG GraphConv (Weisfeiler-Leman), the JAX layer's (layers.py:130-184):
+        X'_i = W_root x_i + W_rel (sum_j w_ij x_j) + b
+    with add-aggregation and optional per-edge weights; the SCN clustering
+    stack's conv.  ``self_weight`` [N] adds ``self_weight_i * x_i`` to the
+    aggregate (the gcn_norm self-loop routed through W_rel).  Branches: the
+    sparse one through ``gather_scatter`` (the CSR kernel when a plan is
+    attached and the backend allows), and for slotted batches the dense
+    one, ``dense_adj`` [G, S, S] already carrying the edge weights.
+
+    Parameters: ``weight_rel`` and ``weight_root`` [out, in] (flax
+    ``kernel_rel``/``kernel_root`` [in, out]) and ``bias``.  float32 only,
+    with a bias: SCN, its one user, sets neither the JAX layer's ``dtype``
+    nor its ``use_bias``.
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight_rel = nn.Parameter(torch.empty(features, in_features))
+        self.weight_root = nn.Parameter(torch.empty(features, in_features))
+        glorot_uniform_(self.weight_rel, generator)
+        glorot_uniform_(self.weight_root, generator)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, senders, receivers, edge_mask, edge_weight=None,
+                num_nodes=None, self_weight=None, dense_adj=None, plan=None):
+        n = num_nodes or x.shape[0]
+        if dense_adj is not None:
+            G, S = dense_adj.shape[0], dense_adj.shape[-1]
+            agg = torch.bmm(dense_adj, x.reshape(-1, S, x.shape[-1])[:G])
+            agg = agg.reshape(-1, x.shape[-1])
+            agg = F.pad(agg, (0, 0, 0, n - agg.shape[0]))
+        else:
+            w_eff = (edge_weight if edge_weight is not None
+                     else torch.ones(senders.shape, dtype=x.dtype,
+                                     device=x.device))
+            w_eff = torch.where(edge_mask, w_eff, 0.0)
+            agg = gather_scatter(x, senders, receivers, num_nodes=n,
+                                 edge_weight=w_eff, plan=plan)
+        if self_weight is not None:
+            agg = agg + self_weight[:, None] * x
+        return (F.linear(agg, self.weight_rel) + F.linear(x, self.weight_root)
+                + self.bias)
+
+
 GAT_NEGATIVE_SLOPE = 0.2
 
 
@@ -177,15 +223,23 @@ class GATConv(nn.Module):
     allows (``gat_edge_logits`` and ``spmm_mh``, dividing after
     aggregation, the max shift detached); otherwise the sparse gather path.
 
+    Bipartite (HSCN's local->virtual relation, ``dst_features`` set): the
+    receivers are ``num_dst_nodes`` nodes with their own features ``x_dst``
+    and projection, no self loops join the softmax, and no kernel runs
+    (the receivers need not be sorted, so no CSR plan describes them), as
+    in the JAX layer.
+
     Parameters: ``weight`` [H*C, in] (flax ``kernel_src`` [in, H*C]),
-    ``att_src``/``att_dst`` [1, H, C] as in flax, ``bias`` [H*C] (concat)
-    or [C] (mean over heads).
+    ``weight_dst`` [H*C, dst_features] when bipartite (flax
+    ``kernel_dst``), ``att_src``/``att_dst`` [1, H, C] as in flax,
+    ``bias`` [H*C] (concat) or [C] (mean over heads).
     """
 
     def __init__(self, in_features: int, features: int, heads: int = 1,
                  concat: bool = True, add_self_loops: bool = True,
                  dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dst_features: int | None = None):
         super().__init__()
         self.heads, self.features = heads, features
         self.concat = concat
@@ -193,6 +247,11 @@ class GATConv(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(heads * features, in_features))
         glorot_uniform_(self.weight, generator)
+        self.weight_dst = None
+        if dst_features is not None:
+            self.weight_dst = nn.Parameter(
+                torch.empty(heads * features, dst_features))
+            glorot_uniform_(self.weight_dst, generator)
         # flax glorot on a (1, H, C) array: fan_in H, fan_out C.
         a = math.sqrt(6.0 / (heads + features))
         self.att_src = nn.Parameter(torch.empty(1, heads, features))
@@ -204,18 +263,25 @@ class GATConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x, senders, receivers, edge_mask, edge_weight=None,
-                num_nodes=None, plan=None, dense_adj=None, x_dst=None):
-        if x_dst is not None:
-            raise NotImplementedError(
-                "bipartite GATConv (HSCN's local->virtual relation): ROADMAP "
-                "slice 5, HSCN")
+                num_nodes=None, plan=None, dense_adj=None, x_dst=None,
+                num_dst_nodes=None):
         H, C = self.heads, self.features
-        n = num_nodes or x.shape[0]
         x, w = promote_dtype(x, self.weight, dtype=self.dtype)
         h = F.linear(x, w).reshape(-1, H, C)
         att_src = self.att_src.to(h.dtype)
         att_dst = self.att_dst.to(h.dtype)
-        if dense_adj is not None:
+        n = num_nodes or x.shape[0]
+        if x_dst is not None:
+            if self.weight_dst is None:
+                raise ValueError("x_dst given to a GATConv built without "
+                                 "dst_features")
+            n = num_dst_nodes or x_dst.shape[0]
+            x_dst, w_dst = promote_dtype(x_dst, self.weight_dst,
+                                         dtype=self.dtype)
+            h_dst = F.linear(x_dst, w_dst).reshape(-1, H, C)
+            out = self._bipartite(h, h_dst, senders, receivers, edge_mask, n,
+                                  att_src, att_dst)
+        elif dense_adj is not None:
             if edge_weight is not None:
                 raise ValueError(
                     "GATConv dense-slotted path does not support "
@@ -247,6 +313,19 @@ class GATConv(nn.Module):
         alpha = ex / ex.sum(dim=2, keepdim=True).clamp_min(1e-16)
         out = torch.einsum("gijh,gjhc->gihc", alpha, hb).reshape(-1, H, C)
         return F.pad(out, (0, 0, 0, 0, 0, n - out.shape[0]))
+
+    @staticmethod
+    def _bipartite(h_src, h_dst, senders, receivers, edge_mask, n_dst,
+                   att_src, att_dst):
+        """Attention of ``n_dst`` receivers over their incoming edges from
+        the source nodes, softmax over each receiver's edges; plain
+        gathers and segment sums, whose order of receivers is free."""
+        a_src = (h_src * att_src).sum(-1)                   # [N_src, H]
+        a_dst = (h_dst * att_dst).sum(-1)                   # [N_dst, H]
+        e = leaky_relu(a_src[senders] + a_dst[receivers])
+        alpha = segment_softmax(e, receivers, n_dst, mask=edge_mask[:, None])
+        return segment_sum(h_src[senders] * alpha[..., None], receivers,
+                           n_dst)
 
     def _sparse(self, h, senders, receivers, edge_mask, n, plan, att_src,
                 att_dst):

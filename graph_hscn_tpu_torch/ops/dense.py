@@ -5,11 +5,12 @@ For molecular-scale graphs message passing runs as batched dense matmuls:
 the flat node array is re-blocked into ``[G, slot, F]`` and the edge list
 into per-graph ``[G, slot, slot]`` adjacencies, so every GCN layer is one
 ``torch.bmm``.  These functions build that view on the batch's device.
-
-``mincut_pool`` (SCN's dense MinCUT pooling) comes with the HSCN slice.
+``mincut_pool`` is SCN's MinCUT pooling over such blocks.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -106,6 +107,20 @@ def batch_to_dense(batch: GraphBatch, max_nodes: int):
     return x, adj, mask
 
 
+def scatter_dense(values: torch.Tensor, batch: GraphBatch,
+                  max_nodes: int) -> torch.Tensor:
+    """Flat [N, F] -> dense [G, n_max, F] by the batch layout, G without
+    the dummy graph, padding rows 0 (the JAX ``models/scn.py:
+    _scatter_dense``; differentiable in ``values``)."""
+    G = batch.num_graphs_padded - 1
+    flat_idx = batch.node_graph * max_nodes + _local_index(batch)
+    flat_idx = torch.where(batch.node_mask, flat_idx, G * max_nodes)
+    out = values.new_zeros(G * max_nodes + 1, values.shape[-1])
+    out = out.index_put((flat_idx,),
+                        torch.where(batch.node_mask[:, None], values, 0.0))
+    return out[:-1].reshape(G, max_nodes, -1)
+
+
 def dense_to_nodes(x_dense: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
     """[G, n_max, F] -> flat [N, F] aligned with batch.node_feat rows."""
     G, n_max, F = x_dense.shape
@@ -113,3 +128,41 @@ def dense_to_nodes(x_dense: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
     idx = idx.clamp(0, G * n_max - 1)
     out = x_dense.reshape(G * n_max, F)[idx]
     return torch.where(batch.node_mask[:, None], out, 0.0)
+
+
+def mincut_pool(x, adj, s_logits, mask=None):
+    """Relaxed MinCUT pooling losses (Bianchi et al. 2020), PyG's
+    ``dense_mincut_pool`` batched: the JAX ``mincut_pool``
+    (ops/dense.py:119-166).
+
+    x [G, n, F], adj [G, n, n], s_logits [G, n, K], mask [G, n] bool or
+    None.  Returns (x_pool [G, K, F], adj_pool [G, K, K], mincut_loss,
+    ortho_loss), the losses means over the G blocks.  A block without
+    edges has a zero denominator, clamped to 1e-12: its cut term is 0.
+    """
+    s = torch.softmax(s_logits, dim=-1)
+    if mask is not None:
+        m = mask[..., None].to(x.dtype)
+        x = x * m
+        s = s * m
+    x_pool = torch.einsum("gnk,gnf->gkf", s, x)
+    adj_pool = torch.einsum("gnk,gnl->gkl", s, torch.bmm(adj, s))
+    # MinCut numerator tr(S^T A S); denominator tr(S^T D S), D the
+    # out-degree (row sums).
+    num = torch.diagonal(adj_pool, dim1=-2, dim2=-1).sum(-1)
+    deg = adj.sum(-1)
+    den = torch.einsum("gnk,gnk->g", s * deg[..., None], s)
+    mincut_loss = (-(num / den.clamp_min(1e-12))).mean()
+    # Orthogonality: || SS^T / ||SS^T||_F - I / sqrt(K) ||_F.
+    ss = torch.einsum("gnk,gnl->gkl", s, s)
+    k = s.shape[-1]
+    ss_norm = torch.linalg.norm(ss, dim=(-2, -1), keepdim=True)
+    ident = torch.eye(k, dtype=x.dtype, device=x.device) / math.sqrt(k)
+    ortho_loss = torch.linalg.norm(ss / ss_norm.clamp_min(1e-12) - ident,
+                                   dim=(-2, -1)).mean()
+    # Zero the pooled diagonal and renormalize, as PyG does.
+    eye = torch.eye(k, dtype=torch.bool, device=x.device)
+    adj_pool = torch.where(eye, 0.0, adj_pool)
+    d = torch.sqrt(adj_pool.sum(-1) + 1e-15)
+    adj_pool = adj_pool / d[..., None] / d[..., None, :]
+    return x_pool, adj_pool, mincut_loss, ortho_loss

@@ -1,11 +1,18 @@
 """Experiment runner: config -> data -> model -> training.
 
 The counterpart of ``graph_hscn_tpu/runner.py`` (the reference's
-run_train, main.py:85-120), single-device MPNN path: the GCN or GAT
-``MPNN``, ``GatedGCNNet`` or the fused ``FusedDenseGCN``, trained by the
-host loop ``fit`` or the device-resident ``fit_device``.  Execution paths are routed as in the JAX
-package (runner.py:49-61, :120-138 and :212-238); the paths of later slices
-raise ``NotImplementedError`` naming their ROADMAP item, so no config falls
+run_train, main.py:85-120), its single-device paths:
+
+  MPNN: the GCN or GAT ``MPNN``, ``GatedGCNNet`` or the fused
+        ``FusedDenseGCN``, trained by the host loop ``fit`` or the
+        device-resident ``fit_device``;
+  HSCN: SCN MinCUT clustering -> cluster ids on the graphs -> ``HSCN``
+        (hscn_pipeline.py), on host batches or the device-resident
+        dataset.
+
+Execution paths are routed as in the JAX package (runner.py:49-61, :71-118,
+:120-138 and :212-238); the paths of later slices raise
+``NotImplementedError`` naming their ROADMAP item, so no config falls
 through to a path it did not ask for.
 
 Runs on ``cuda`` unless the caller passes another device; without a card
@@ -20,6 +27,7 @@ import torch
 from graph_hscn_tpu_torch.config import defaults as D
 from graph_hscn_tpu_torch.config.config import ExperimentConfig
 from graph_hscn_tpu_torch.data.pipeline import DataModule
+from graph_hscn_tpu_torch.hscn_pipeline import run_hscn_pipeline
 from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
 from graph_hscn_tpu_torch.models.layers import resolve_dtype
 from graph_hscn_tpu_torch.models.mpnn import build_mpnn
@@ -98,8 +106,14 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
     shape = _resolve_mesh_shape(cfg.mesh.shape)
     mesh_size = int(np.prod(shape))
     if cfg.hscn is not None:
-        raise NotImplementedError("HSCN pipeline: ROADMAP slice 5 "
-                                  "(queue A, item 7)")
+        if cfg.mesh.edge_partition:
+            raise NotImplementedError(
+                "edge-partitioned HSCN (parallel/sharded_scn.py): ROADMAP "
+                "queue A, item 11")
+        return run_hscn_pipeline(
+            cfg, dm, logger, device, compute_dtype,
+            use_device_dataset=_use_device_dataset(cfg, dm),
+            step_timing=step_timing)
     # Initial weights from a seeded generator on the host, then moved.
     init_gen = torch.Generator().manual_seed(cfg.training.seed)
     readout = "none" if node_level else "mean"

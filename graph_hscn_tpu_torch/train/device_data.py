@@ -74,11 +74,15 @@ class DeviceDataset:
             for f in _ARRAY_FIELDS if getattr(self, f) is not None})
 
     @staticmethod
-    def build(graphs, slot: int | None = None, device=None) -> "DeviceDataset":
+    def build(graphs, slot: int | None = None, device=None,
+              with_cluster: bool = False) -> "DeviceDataset":
         """The dataset in slotted form.  With ``device`` None the arrays
         stay numpy on the host (the JAX ``device_put=False``); with a
         device they are moved there and the adjacency cache is built on it
-        when NG * slot^2 * 2 bytes fit ``ADJ_CACHE_BUDGET_BYTES``."""
+        when NG * slot^2 * 2 bytes fit ``ADJ_CACHE_BUDGET_BYTES``.
+        ``with_cluster`` gives the dataset a ``cluster`` field (zeros where
+        the graphs carry none) for the HSCN pipeline to write its
+        assignments into."""
         NG = len(graphs)
         if any(g.edge_weight is not None for g in graphs):
             # The layout carries no per-edge weights (assemble emits
@@ -98,7 +102,7 @@ class DeviceDataset:
         g0 = graphs[0]
         has_y = g0.y is not None
         has_ny = g0.node_y is not None
-        has_cl = g0.cluster is not None
+        has_cl = g0.cluster is not None or with_cluster
         has_ev = g0.eigvecs is not None
         has_ea = g0.edge_attr is not None
         edge_feat = (np.zeros((NG, e_slot, g0.edge_attr.shape[1]),

@@ -47,6 +47,8 @@ class FitResult:
     # Wall seconds of each train step, each ending in a device sync; filled
     # only when fit(step_timing=True).
     step_seconds: list = dataclasses.field(default_factory=list)
+    # The HSCN pipeline's clustering epochs' mean losses.
+    cluster_losses: list = dataclasses.field(default_factory=list)
 
 
 def run_fit_loop(training_cfg, logger, train_epoch, evaluate,

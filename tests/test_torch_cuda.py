@@ -920,3 +920,58 @@ def test_csr_spmm_and_edge_sddmm_at_the_hbm_size(lattice, dtype):
     torch.cuda.synchronize()
     assert_close(dots, edge_sddmm_plain(x, g, p.row, p.col, p.num_edges))
     assert not dots[p.num_edges:].any()
+
+
+def test_sparse_hscn_on_the_card_matches_the_cpu():
+    """The VOC sparse HSCN config's model at full width (hidden 32, 3
+    layers, K = 8) on a 4-graph batch with its CSR plan, virtual_feedback
+    on and nonzero VLDense weights: logits and every parameter gradient on
+    the card (csr_spmm, 3 launches forward and 3 backward) within
+    1e-4*max|ref| of the CPU's (the kernel's plain version)."""
+    need_card()
+    import copy
+    from pathlib import Path
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.models.hscn import build_hscn
+    from graph_hscn_tpu_torch.train.loss import criterion
+    cfg = load_config(Path(__file__).parents[1] / "configs" / "HSCN"
+                      / "voc_superpixels_HSCN_sparse.yaml")
+    cfg.data.num_graphs = 16
+    cfg.hscn.virtual_feedback = True
+    dm = DataModule.from_config(cfg.data)
+    rng = np.random.default_rng(3)
+    graphs = [g.replace(cluster=rng.integers(0, cfg.hscn.num_clusters,
+                                             g.num_nodes).astype(np.int32))
+              for g in dm.split("train")[:4]]
+    batch = pack_batch(graphs, PadBudget.for_dataset(graphs, 4),
+                       with_spmm_plan=True)
+    gen = torch.Generator().manual_seed(4)
+    model = build_hscn(cfg.hscn, dm.num_features, dm.num_classes,
+                       readout="none", generator=gen)
+    with torch.no_grad():
+        for vl in model.vl:
+            vl.weight.normal_(0.0, 0.3, generator=gen)
+    outs = {}
+    prev = spmm.get_backend()
+    spmm.set_backend("pallas")
+    try:
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            b = batch.to(dev)
+            before = csr_spmm.launches
+            logits = m(b)
+            loss, _ = criterion(cfg.training.loss_fn, logits, b.node_y,
+                                b.node_mask)
+            loss.backward()
+            outs[dev] = [logits.detach()] + [
+                p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in m.parameters()]
+            launched = csr_spmm.launches - before
+    finally:
+        spmm.set_backend(prev)
+    assert launched == 2 * cfg.hscn.num_layers
+    for ref, got in zip(outs["cpu"], outs["cuda"]):
+        assert bool(got.isfinite().all())
+        assert_close(got, ref, 1e-4)

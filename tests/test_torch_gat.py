@@ -374,12 +374,37 @@ def test_gat_conv_takes_the_kernels_only_with_a_plan(batches, monkeypatch):
         spmm.set_backend(prev)
 
 
-def test_bipartite_gat_is_the_hscn_slice(batches):
+def test_bipartite_gat_is_the_hscn_slice(batches, monkeypatch):
+    """The bipartite branch (HSCN's local->virtual relation, ported with the
+    HSCN slice; held against JAX in tests/test_torch_hscn.py) takes no
+    kernel, even with a plan on the kernel backend, as in the JAX layer:
+    its receivers need not be sorted.  It needs a GATConv built with
+    dst_features."""
     _, tbatch = batches
-    conv = GATConv(14, 4, heads=2)
-    with pytest.raises(NotImplementedError, match="HSCN"):
-        conv(tbatch.node_feat, tbatch.senders, tbatch.receivers,
-             tbatch.edge_mask, x_dst=tbatch.node_feat)
+    from graph_hscn_tpu_torch.models import layers
+    calls = []
+    monkeypatch.setattr(layers, "gat_edge_logits", lambda *a: calls.append(
+        "sddmm") or gat_edge_logits(*a))
+    real_apply = SpmmMhFunction.apply
+    monkeypatch.setattr(layers.SpmmMhFunction, "apply",
+                        lambda *a: calls.append("spmm") or real_apply(*a))
+    n = tbatch.num_nodes_padded
+    dst = torch.arange(n) % 5    # 5 receivers, unsorted
+    x_dst = torch.randn(5, 3, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="dst_features"):
+        GATConv(14, 4, heads=2)(tbatch.node_feat, torch.arange(n), dst,
+                                tbatch.node_mask, x_dst=x_dst)
+    conv = GATConv(14, 4, heads=2, add_self_loops=False, dst_features=3)
+    prev = spmm.get_backend()
+    spmm.set_backend("pallas")
+    try:
+        outs = [conv(tbatch.node_feat, torch.arange(n), dst,
+                     tbatch.node_mask, plan=plan, x_dst=x_dst)
+                for plan in (tbatch.spmm, None)]
+    finally:
+        spmm.set_backend(prev)
+    assert not calls
+    assert outs[0].shape == (5, 8) and torch.equal(outs[0], outs[1])
 
 
 @pytest.fixture(scope="module")

@@ -178,8 +178,9 @@ def test_gelu_is_the_tanh_form():
 
 @pytest.mark.parametrize("conv_type", ["gat", "gin", "gatedgcn", "gps"])
 def test_build_mpnn_other_convs_are_later_slices(conv_type):
-    """GIN and GPS are later slices.  GAT builds; of it only the bipartite
-    call (HSCN's local->virtual relation) is a later slice.  GatedGCN
+    """GIN and GPS are later slices.  GAT builds; its convs are not
+    bipartite (HSCN's local->virtual relation builds its GATConv with
+    dst_features), so a bipartite call on one is refused.  GatedGCN
     builds its GatedGCNNet (with an edge encoder for edge features) and
     runs a forward on a peptides-struct batch."""
     from graph_hscn_tpu_torch.config.config import MPNNConfig
@@ -204,5 +205,5 @@ def test_build_mpnn_other_convs_are_later_slices(conv_type):
         return
     conv = build_mpnn(cfg, 9, 10).convs[0]
     x, idx = torch.zeros(3, 9), torch.zeros(1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dst_features"):
         conv(x, idx, idx, torch.ones(1, dtype=torch.bool), x_dst=x)
