@@ -65,7 +65,8 @@ Phases; any failure exits non-zero:
                configs/GAT/voc_superpixels_GAT_sparse.yaml,
                configs/GAT/peptides_func_GAT.yaml,
                configs/GatedGCN/voc_superpixels_GatedGCN_sparse.yaml,
-               configs/GatedGCN/peptides_struct_GatedGCN.yaml, and the
+               configs/GatedGCN/peptides_struct_GatedGCN.yaml,
+               configs/GCN/voc_superpixels_GCN.yaml, and the
                HSCN pipeline (clustering and HSCN, 2 epochs each) on
                configs/HSCN/voc_superpixels_HSCN_sparse.yaml and the four
                shipped single-device HSCN configs: finite losses (the
@@ -76,16 +77,29 @@ Phases; any failure exits non-zero:
                spmm_mh + 12 sddmm_mh a train step, 4 + 8 an eval batch; VOC
                GatedGCN: 20 segment_reduce a train step, 8 an eval batch;
                VOC sparse HSCN: 6 csr_spmm a train step, 3 an eval batch;
-               the unfused peptides configs and the shipped HSCN configs:
-               none; no launch while clustering).  Then a torch.profiler
-               window over steady train steps of each sparse VOC path, the
-               four peptides paths and two HSCN paths (device busy time,
-               idle share, device operations, kernels by time; VOC GCN,
-               GAT and HSCN: their kernels' and the gathers' device time a
-               step); then each sparse VOC model and the fused stack at
-               full width on a 4-graph batch, on the card and on the CPU:
-               logits and gradients agree; for the VOC sparse HSCN (virtual
-               feedback on) its SCN's assignments too.
+               the unfused device-dataset configs and the shipped HSCN
+               configs: none; no launch while clustering).  The
+               device-dataset configs (peptides, the shipped VOC GCN, the
+               shipped HSCN) take the captured route: each train, eval
+               and clustering step captured once as a CUDA graph and
+               replayed row by row, the launch counts kept by the replay
+               accounting; each then runs again eagerly row by row
+               (capture=False) and a [capture] line gives both median step
+               times, both max_memory_allocated, the replays, and the
+               largest relative difference of their per-epoch losses (at
+               most 1e-4).  Then a torch.profiler window over steady train
+               steps of each sparse VOC path, the four peptides paths, the
+               shipped VOC GCN and three HSCN paths (device busy time, idle
+               share, device operations, kernels by time; VOC GCN, GAT and
+               HSCN: their kernels' and the gathers' device time a step);
+               on the device-dataset paths the replayed step beside the
+               eager one, then the replays back to back under CUDA events,
+               and on the fused path the fused kernels' launches seen by
+               the profiler, which must equal the replay accounting; then
+               each sparse VOC model and the fused stack at full width on
+               a 4-graph batch, on the card and on the CPU: logits and
+               gradients agree; for the VOC sparse HSCN (virtual feedback
+               on) its SCN's assignments too.
 The last three lines are the {"kernels": [...]} record, nvidia-smi's line, and
 {"ok": true, "device": {...}}.
 """
@@ -94,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import itertools
 import json
 import math
@@ -107,6 +122,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "GCN" / "voc_superpixels_GCN_sparse.yaml"
+VOC_GCN = REPO / "configs" / "GCN" / "voc_superpixels_GCN.yaml"
 PEPTIDES = REPO / "configs" / "GCN" / "peptides_func_GCN.yaml"
 PEPTIDES_FUSED = REPO / "configs" / "GCN" / "peptides_func_GCN_fused.yaml"
 VOC_GAT = REPO / "configs" / "GAT" / "voc_superpixels_GAT_sparse.yaml"
@@ -1018,11 +1034,12 @@ def all_kernels():
             sddmm_mh, segment_reduce)
 
 
-def train_run(path: Path, expected) -> dict:
+def train_run(path: Path, expected, label: str = "train") -> tuple:
     """One path through run_experiment on the card for EPOCHS epochs, every
     kernel's launch count from that run alone.  ``expected(cfg, steps,
     evals)`` gives the counts the path must show (a kernel it leaves out:
-    0).  Returns {kernel: launches}."""
+    0).  Returns ({kernel: launches}, the FitResult, the median step ms,
+    max_memory_allocated above what was allocated at the start)."""
     import torch
 
     from graph_hscn_tpu_torch.config.config import load_config
@@ -1033,6 +1050,11 @@ def train_run(path: Path, expected) -> dict:
     cfg.training.eval_period = 1
     if cfg.hscn is not None:
         cfg.hscn.cluster_epochs = EPOCHS
+    # What earlier runs left allocated (their garbage collected): the
+    # baseline of this run's peak.
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
     for k in kernels:
@@ -1044,9 +1066,10 @@ def train_run(path: Path, expected) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    tag = f"[{label}] {path.name}"
     if cfg.hscn is not None:
         cl = result.cluster_losses
-        print(f"[train] {path.name}: clustering {len(cl)} epochs, losses "
+        print(f"{tag}: clustering {len(cl)} epochs, losses "
               f"{cl}; launches while clustering {clustering}", flush=True)
         if len(cl) != EPOCHS or not all(math.isfinite(v) for v in cl):
             fail(f"{path.name}: clustering losses {cl}")
@@ -1056,10 +1079,10 @@ def train_run(path: Path, expected) -> dict:
     steps, evals = result.num_train_steps, result.num_eval_batches
     want = dict.fromkeys(launches, 0)
     want.update(expected(cfg, steps, evals))
-    print(f"[train] {path.name}: {type(result.model).__name__}, "
+    print(f"{tag}: {type(result.model).__name__}, "
           f"{result.epochs_run} epochs, {steps} train steps, {evals} eval "
-          f"batches in {wall:.2f} s; launches {launches} (expected {want})",
-          flush=True)
+          f"batches in {wall:.2f} s; launches {launches} (expected {want}); "
+          f"replays {result.replays}", flush=True)
     losses = [v for h in result.history for k, v in h.items()
               if k.endswith("_loss")]
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -1067,12 +1090,71 @@ def train_run(path: Path, expected) -> dict:
     if launches != want:
         fail(f"{path.name}: launches {launches}, want {want}")
     ms = [s * 1e3 for s in result.step_seconds]
-    print(f"[train] {path.name} step ms (synchronised host clock): median "
-          f"{statistics.median(ms):.3f}, first {ms[0]:.3f}, min "
+    median = statistics.median(ms)
+    memory = torch.cuda.max_memory_allocated() - held
+    print(f"{tag} step ms (synchronised host clock): median "
+          f"{median:.3f}, first {ms[0]:.3f}, min "
           f"{min(ms):.3f}, max {max(ms):.3f}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+          f"{memory} bytes above the {held} held at the start", flush=True)
     for h in result.history:
-        print(f"[train] {h}")
+        print(f"{tag} {h}")
+    return launches, result, median, memory
+
+
+@contextlib.contextmanager
+def eager_route():
+    """Within the block the device-resident route runs its steps eagerly
+    row by row (``capture=False``), the yardstick beside the captured
+    steps: fit_on_device_dataset where fit_device and the HSCN pipeline
+    look it up, and the pipeline's train_clustering_device."""
+    import functools
+
+    from graph_hscn_tpu_torch import hscn_pipeline
+    from graph_hscn_tpu_torch.train import loop
+    names = [(loop, "fit_on_device_dataset"),
+             (hscn_pipeline, "fit_on_device_dataset"),
+             (hscn_pipeline, "train_clustering_device")]
+    saved = [getattr(m, n) for m, n in names]
+    for (m, n), fn in zip(names, saved):
+        setattr(m, n, functools.partial(fn, capture=False))
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(names, saved):
+            setattr(m, n, fn)
+
+
+def capture_run(path: Path, expected) -> dict:
+    """A device-resident path twice: captured (the main path, whose
+    launches are returned) and eager (``capture=False``), in turn.  Prints
+    the [capture] line: both median step times, the largest relative
+    difference of their per-epoch train, val and test losses (at most
+    1e-4), both max_memory_allocated, and the captured run's replays; the
+    launch counts must be the expected ones in both."""
+    launches, got, ms, mem = train_run(path, expected, "train")
+    with eager_route():
+        _, ref, ms_eager, mem_eager = train_run(path, expected, "eager")
+    if not got.replays or got.replays["train"] != got.num_train_steps - 1:
+        fail(f"{path.name}: captured run replays {got.replays} for "
+             f"{got.num_train_steps} train steps")
+    if any(ref.replays.values()):
+        fail(f"{path.name}: the eager run replayed {ref.replays}")
+    worst = 0.0
+    for h, e in zip(got.history, ref.history):
+        for key in ("train_loss", "validation_loss", "test_loss"):
+            worst = max(worst, abs(h[key] - e[key]) / max(abs(e[key]),
+                                                          1e-30))
+    cl = [abs(a - b) for a, b in zip(got.cluster_losses, ref.cluster_losses)]
+    print(f"[capture] {path.name}: median step ms captured {ms:.3f}, eager "
+          f"{ms_eager:.3f} ({ms_eager / ms:.2f}x); losses max relative "
+          f"difference {worst:.3e} (limit 1e-4)"
+          + (f", clustering losses max |difference| {max(cl):.3e}"
+             if cl else "")
+          + f"; max_memory_allocated captured {mem}, eager {mem_eager} "
+          f"bytes; replays {got.replays}", flush=True)
+    if len(got.history) != len(ref.history) or not worst <= 1e-4:
+        fail(f"{path.name}: captured and eager losses differ by {worst:.3e}"
+             " relative (limit 1e-4)")
     return launches
 
 
@@ -1149,9 +1231,8 @@ def profile_steps(label: str, step, make_batch, steps: int = 6,
                   focus: dict | None = None) -> None:
     """Where a train step's time goes: ``step(make_batch(i))`` over
     ``steps`` steady steps (after 3 warm-up steps) under torch.profiler;
-    device busy time, idle share, and the kernels by device time.
-    ``focus``: {label: name substrings}, each group's summed device time
-    and count a step (a device operation whose name holds a substring)."""
+    device busy time, idle share, and the kernels by device time (see
+    :func:`report_profile`)."""
     import torch
 
     for i in range(3):   # warm-up
@@ -1159,12 +1240,21 @@ def profile_steps(label: str, step, make_batch, steps: int = 6,
     torch.cuda.synchronize()
     it = iter(range(steps))
     dev, wall_ms = profiled(lambda: step(make_batch(next(it))), steps)
+    report_profile(label, dev, wall_ms, steps, "train steps", focus)
+
+
+def report_profile(label: str, dev: list, wall_ms: float, steps: int,
+                   what: str, focus: dict | None = None) -> None:
+    """Prints a profiled window of ``steps`` steps: device busy time, idle
+    share, device operations and the kernels by device time a step.
+    ``focus``: {label: name substrings}, each group's summed device time
+    and count a step (a device operation whose name holds a substring)."""
     if not dev:
         print(f"[profile] {label}: the profiler recorded no device events: "
               "device busy time not measured", flush=True)
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    print(f"[profile] {label}: {steps} train steps (profiler on): wall "
+    print(f"[profile] {label}: {steps} {what} (profiler on): wall "
           f"{wall_ms / steps:.3f} ms a step, device busy "
           f"{busy_ms / steps:.3f} ms a step, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {len(dev) / steps:.1f} device "
@@ -1182,6 +1272,68 @@ def profile_steps(label: str, step, make_batch, steps: int = 6,
         print(f"[profile] {label}, {group}: {sum(ts) / steps:.2f} us a step "
               f"of device time, {len(ts) / steps:.1f} operations a step",
               flush=True)
+
+
+# The device launches of the fused stack's kernels, by the names the
+# profiler gives them: the forward, the backward and its partial sums.
+FUSED_KERNEL_NAMES = {"fused_gcn_fwd": "fused_gcn_fwd_kernel",
+                      "fused_gcn_bwd": "fused_gcn_bwd_kernel",
+                      "sum_partials": "sum_partials_kernel"}
+
+
+def profile_replays(label: str, train_epoch, perm, steps: int = 6,
+                    focus: dict | None = None) -> None:
+    """The captured train step (a ``device_data.RowSteps`` made by
+    make_epoch_fn) replayed under the profiler: one epoch over ``perm``
+    first (the eager first row, the capture, the replays), then the first
+    ``steps`` rows of it again, all replays; reported as
+    :func:`report_profile` reports.  The
+    fused stack's kernels, counted on the device over the profiled
+    replays, must equal the wrappers' replay accounting (0 where the path
+    has none), and every fused_gcn_bwd launch brings its partial sums."""
+    import torch
+
+    train_epoch(perm)
+    if train_epoch.load(perm) < steps:
+        fail(f"{label}: {len(perm)} rows, too few to profile {steps} "
+             "replays")
+    torch.cuda.synchronize()
+    kernels = all_kernels()
+    before = {k.__name__: k.launches for k in kernels}
+    replays = train_epoch.replays
+    dev, wall_ms = profiled(train_epoch.step, steps)
+    if train_epoch.replays - replays != steps:
+        fail(f"{label}: {train_epoch.replays - replays} replays profiled, "
+             f"want {steps}")
+    counted = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    report_profile(label, dev, wall_ms, steps, "replayed train steps", focus)
+    # The replays back to back, no sync between them and no profiler (whose
+    # tracing of a graph's nodes slows its launch): CUDA events around the
+    # epoch's rows.
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
+    nb = train_epoch.load(perm)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(nb):
+        train_epoch.step()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / nb
+    print(f"[profile] {label}: {nb} replayed train steps back to back (CUDA "
+          f"events, no profiler): {ms:.3f} ms a step, idle share "
+          f"{1 - busy_ms / ms:.3f} against the profiled busy time",
+          flush=True)
+    seen = {k: sum(n in e.name for e in dev)
+            for k, n in FUSED_KERNEL_NAMES.items()}
+    print(f"[profile] {label}, replays: kernel launches counted by the "
+          f"wrappers {counted}; fused kernels seen by the profiler {seen}",
+          flush=True)
+    if (seen["fused_gcn_fwd"] != counted["fused_gcn_fwd"]
+            or seen["fused_gcn_bwd"] != counted["fused_gcn_bwd"]
+            or seen["sum_partials"] != seen["fused_gcn_bwd"]):
+        fail(f"{label}: the profiler saw {seen} fused kernel launches over "
+             f"{steps} replays, the replay accounting {counted}")
 
 
 # The VOC GCN step's aggregation: the kernel, and the gathers around it.
@@ -1278,10 +1430,12 @@ def phase_reference(path: Path):
           f"relative error {worst:.2e}", flush=True)
 
 
-def peptides_setup(path: Path, fused: bool):
-    """(cfg, dm, ds, model) at a peptides config's full width: the data
-    with dense slots, the device-resident dataset of all its graphs on the
-    card, and the model the runner builds for it (weights from seed 0)."""
+def peptides_setup(path: Path, fused: bool, slotted: bool = True):
+    """(cfg, dm, ds, model) at a device-dataset config's full width: the
+    data (with dense slots, or ``slotted`` False: the slot the dataset
+    picks, as the runner leaves it for graphs over 512 nodes), the
+    device-resident dataset of all its graphs on the card, and the model
+    the runner builds for it (weights from seed 0)."""
     import torch
 
     from graph_hscn_tpu_torch.config.config import load_config
@@ -1294,17 +1448,19 @@ def peptides_setup(path: Path, fused: bool):
     cfg = load_config(path)
     set_matmul_precision(cfg.runtime.matmul_precision)
     dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
-    if not dm.enable_dense_slots():
+    if slotted and not dm.enable_dense_slots():
         fail(f"{path.name}: the graphs do not fit dense slots")
     ds = DeviceDataset.build(dm.graphs, slot=dm.slot_nodes, device="cuda")
     gen = torch.Generator().manual_seed(0)
+    readout = "none" if dm.task_level == "node" else "mean"
     if fused:
         model = FusedDenseGCN(dm.num_features, cfg.mpnn.hidden_channels,
                               dm.num_classes, cfg.mpnn.num_layers,
                               dropout=cfg.mpnn.dropout, generator=gen)
     else:
         model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                           compat=cfg.compat.double_relu, generator=gen,
+                           compat=cfg.compat.double_relu, readout=readout,
+                           generator=gen,
                            num_edge_features=dm.num_edge_features)
     return cfg, dm, ds, model.cuda()
 
@@ -1670,42 +1826,66 @@ def phase_fused_kernels(build_logs: dict):
     ]
 
 
-def phase_profile_peptides(path: Path, label: str, fused: bool = False):
-    """A peptides train step (assemble the batch on the card, train step)
-    under the profiler."""
+def train_rows(dm, batch_size: int, seed: int = 0) -> np.ndarray:
+    """The train split's rows of one epoch, as fit_on_device_dataset lays
+    them out (dataset ids, -1 for dummy slots)."""
+    from graph_hscn_tpu_torch.train.device_data import epoch_permutation
+    ids = dm.split_idx["train"]
+    perm = epoch_permutation(len(ids), batch_size, seed)
+    return np.where(perm >= 0, ids[np.clip(perm, 0, None)], -1).astype(
+        np.int32)
+
+
+def phase_profile_peptides(path: Path, label: str, fused: bool = False,
+                           slotted: bool = True):
+    """A device-dataset train step under the profiler, eager (assemble the
+    batch on the card, train step) and then replayed (the step captured by
+    make_epoch_fn, on a copy of the same model)."""
     import torch
 
     from graph_hscn_tpu_torch.train.device_data import (assemble,
-                                                        epoch_permutation)
+                                                        make_epoch_fn)
     from graph_hscn_tpu_torch.train.loop import make_train_step
     from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
-    cfg, dm, ds, model = peptides_setup(path, fused)
+    cfg, dm, ds, model = peptides_setup(path, fused, slotted)
+    node_level = dm.task_level == "node"
+    captured = copy.deepcopy(model)
+    # Both with the capturable optimizer of the device route on the card.
     opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
-                          cfg.optim.lr, cfg.optim.weight_decay)
+                          cfg.optim.lr, cfg.optim.weight_decay,
+                          capturable=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     step, _ = make_train_step(model, opt, cfg.training.loss_fn,
-                              generator=gen)
-    ids = dm.split_idx["train"]
-    perm = epoch_permutation(len(ids), cfg.data.batch_size, 0)
-    rows = torch.as_tensor(np.where(perm >= 0, ids[np.clip(perm, 0, None)],
-                                    -1).astype(np.int32), device="cuda")
+                              node_level=node_level, generator=gen)
+    perm = train_rows(dm, cfg.data.batch_size)
+    rows = torch.as_tensor(perm, device="cuda")
     profile_steps(label, step, lambda i: assemble(ds, rows[i % len(rows)]))
+    opt = build_optimizer(captured.parameters(), cfg.optim.optim_type,
+                          cfg.optim.lr, cfg.optim.weight_decay,
+                          capturable=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    train_epoch, _ = make_epoch_fn(captured, opt, ds, cfg.data.batch_size,
+                                   len(perm), cfg.training.loss_fn,
+                                   node_level=node_level, generator=gen)
+    profile_replays(label, train_epoch, perm)
 
 
 def phase_profile_hscn(path: Path, label: str, focus: dict | None = None):
     """An HSCN train step under the profiler, on its config's route: the
     VOC sparse twin's host batches (moved to the card, the CSR plan
     attached), or a peptides config's device dataset (the batch assembled
-    on the card).  Cluster ids come from a seeded draw (``hscn_data``), not
-    a clustering run."""
+    on the card; then, replayed, the step captured by make_epoch_fn on a
+    copy of the same model).  Cluster ids come from a seeded draw
+    (``hscn_data``), not a clustering run."""
     import torch
 
     from graph_hscn_tpu_torch.models.hscn import build_hscn
     from graph_hscn_tpu_torch.runner import set_matmul_precision
     from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
                                                         assemble,
-                                                        epoch_permutation)
+                                                        epoch_permutation,
+                                                        make_epoch_fn)
     from graph_hscn_tpu_torch.train.loop import make_train_step
     from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
@@ -1715,8 +1895,12 @@ def phase_profile_hscn(path: Path, label: str, focus: dict | None = None):
     model = build_hscn(cfg.hscn, dm.num_features, dm.num_classes,
                        readout="none" if node_level else "mean",
                        generator=torch.Generator().manual_seed(0)).cuda()
+    captured = copy.deepcopy(model)
+    # The device route's optimizer is capturable on the card, the host
+    # route's not.
     opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
-                          cfg.optim.lr, cfg.optim.weight_decay)
+                          cfg.optim.lr, cfg.optim.weight_decay,
+                          capturable=cfg.runtime.device_dataset != "off")
     step, _ = make_train_step(model, opt, cfg.training.loss_fn,
                               node_level=node_level)
     if cfg.runtime.device_dataset == "off":
@@ -1730,12 +1914,21 @@ def phase_profile_hscn(path: Path, label: str, focus: dict | None = None):
             fail(f"{path.name}: the graphs do not fit dense slots")
         ds = DeviceDataset.build(dm.graphs, slot=dm.slot_nodes,
                                  device="cuda", with_cluster=True)
-        rows = torch.as_tensor(epoch_permutation(
-            ds.num_graphs, cfg.data.batch_size, 0), device="cuda")
+        perm = epoch_permutation(ds.num_graphs, cfg.data.batch_size, 0)
+        rows = torch.as_tensor(perm, device="cuda")
 
         def make_batch(i):
             return assemble(ds, rows[i % len(rows)])
     profile_steps(label, step, make_batch, focus=focus)
+    if cfg.runtime.device_dataset != "off":
+        opt = build_optimizer(captured.parameters(), cfg.optim.optim_type,
+                              cfg.optim.lr, cfg.optim.weight_decay,
+                              capturable=True)
+        train_epoch, _ = make_epoch_fn(
+            captured, opt, ds, cfg.data.batch_size, len(perm),
+            cfg.training.loss_fn, node_level=node_level,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        profile_replays(label, train_epoch, perm, focus=focus)
 
 
 def phase_reference_hscn():
@@ -1897,21 +2090,24 @@ def main() -> int:
     phase_hbm()
     phase_hscn_kernels()
     # Each path's launches, counted from its own run alone.
-    launches = train_run(CONFIG, voc_gcn_launches)
-    train_run(PEPTIDES, no_launches)
-    fused = train_run(PEPTIDES_FUSED, fused_launches)
-    gat = train_run(VOC_GAT, voc_gat_launches)
-    train_run(PEPTIDES_GAT, no_launches)
-    gated = train_run(VOC_GATED, voc_gatedgcn_launches)
-    train_run(PEPTIDES_GATED, no_launches)
+    # The device-resident configs (capture_run) train captured, then
+    # eagerly beside.
+    launches = train_run(CONFIG, voc_gcn_launches)[0]
+    capture_run(PEPTIDES, no_launches)
+    fused = capture_run(PEPTIDES_FUSED, fused_launches)
+    gat = train_run(VOC_GAT, voc_gat_launches)[0]
+    capture_run(PEPTIDES_GAT, no_launches)
+    gated = train_run(VOC_GATED, voc_gatedgcn_launches)[0]
+    capture_run(PEPTIDES_GATED, no_launches)
+    capture_run(VOC_GCN, no_launches)
     for k in ("fused_gcn_fwd", "fused_gcn_bwd"):
         launches[k] = fused[k]
     for k in ("spmm_mh", "sddmm_mh"):
         launches[k] = gat[k]
     launches["segment_reduce"] = gated["segment_reduce"]
-    hscn = train_run(VOC_HSCN, voc_hscn_launches)
+    hscn = train_run(VOC_HSCN, voc_hscn_launches)[0]
     for path in SHIPPED_HSCN:
-        train_run(path, no_launches)
+        capture_run(path, no_launches)
     launches["csr_spmm"] += hscn["csr_spmm"]
     phase_profile(CONFIG, "VOC sparse GCN", focus=GCN_FOCUS)
     phase_profile_peptides(PEPTIDES, "peptides unfused GCN")
@@ -1920,8 +2116,11 @@ def main() -> int:
     phase_profile_peptides(PEPTIDES_GAT, "peptides dense GAT")
     phase_profile(VOC_GATED, "VOC sparse GatedGCN")
     phase_profile_peptides(PEPTIDES_GATED, "peptides-struct GatedGCN")
+    phase_profile_peptides(VOC_GCN, "VOC GCN, device dataset",
+                           slotted=False)
     phase_profile_hscn(VOC_HSCN, "VOC sparse HSCN", focus=GCN_FOCUS)
     phase_profile_hscn(PEPTIDES_HSCN, "peptides HSCN")
+    phase_profile_hscn(SHIPPED_HSCN[2], "peptides HSCN with feedback")
     phase_reference(CONFIG)
     phase_reference_fused()
     phase_reference(VOC_GAT)

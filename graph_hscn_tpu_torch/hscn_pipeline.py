@@ -78,7 +78,10 @@ def run_hscn_pipeline_device(cfg: ExperimentConfig, dm: DataModule, logger,
                              step_timing: bool = False) -> FitResult:
     """The device-resident route: one dataset on ``device`` (train, val,
     test in that order) for the clustering pre-train, the assignments
-    written back into it, and the HSCN fit."""
+    written back into it, and the HSCN fit.  On the card each stage
+    captures its steps as CUDA graphs, which read the dataset by address:
+    the fit's are captured on the dataset clustering returns, after the
+    clusters are written, and nothing rebuilds it after."""
     splits = {k: dm.split(k) for k in ("train", "val", "test")}
     all_graphs = splits["train"] + splits["val"] + splits["test"]
     ds = DeviceDataset.build(all_graphs, slot=dm.slot_nodes, device=device,

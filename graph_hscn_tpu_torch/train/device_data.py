@@ -3,9 +3,12 @@
 
 For molecular-scale datasets the whole dataset lives on the card in
 slotted per-graph form, and every step assembles its batch there from a row
-of graph indices: a step's host-to-device traffic is one index row, and the
-epoch's permutation is copied once.  (The JAX package runs the epoch as one
-``lax.scan`` program; here the epoch is a Python loop over the rows.)
+of graph indices: a step's host-to-device traffic is none, and the epoch's
+permutation is copied once.  The JAX package runs the epoch as one
+``lax.scan`` program; here (:func:`make_epoch_fn`, :class:`RowSteps`) one
+step, which reads its row from a static buffer by a counter on the device,
+is captured once as a CUDA graph and replayed row by row; on the CPU the
+same step runs eagerly row by row.
 
 Layout (graph-major):
   nodes      [NG, slot, F]     zero-padded node features
@@ -25,12 +28,15 @@ unchanged; index entries of -1 are dummy slots (masked).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
+from graph_hscn_tpu_torch.train.capture import (CapturedStep,
+                                                run_on_side_stream)
 
 # The JAX package's budget for the adjacency cache: NG * slot^2 2-byte
 # counts (device_data.py:135-141).  The port keeps its counts in int16
@@ -257,3 +263,142 @@ def epoch_permutation(num_graphs: int, batch_size: int, seed: int,
     out = np.full((nb, batch_size), -1, np.int32)
     out.reshape(-1)[:num_graphs] = idx
     return out
+
+
+def resolve_capture(capture: bool | None, device) -> bool:
+    """Whether the device route captures its steps: by default on a CUDA
+    device, never on the CPU (there is nothing to capture)."""
+    on_card = torch.device(device).type == "cuda"
+    if capture is None:
+        return on_card
+    if capture and not on_card:
+        raise ValueError("capture=True needs a CUDA device")
+    return capture
+
+
+def row_buffers(max_rows: int, batch_size: int, device, capture: bool
+                ) -> tuple:
+    """What the :class:`RowSteps` of one route share: the static
+    permutation buffer [max_rows, B] (-1 = dummy slot), the row counter [1]
+    on ``device``, and, captured, the graphs' memory pool (else None)."""
+    rows = torch.full((max_rows, batch_size), -1, dtype=torch.int32,
+                      device=device)
+    counter = torch.zeros(1, dtype=torch.int64, device=device)
+    return rows, counter, torch.cuda.graph_pool_handle() if capture else None
+
+
+class RowSteps:
+    """An epoch of one step over the rows of a [NB, B] permutation: the
+    counterpart of a ``lax.scan`` over them.
+
+    The step reads its row from ``rows`` [max_rows, B] (the static
+    permutation buffer, -1 = dummy slot) at the device counter ``counter``
+    [1], assembles the batch, runs ``body(batch)`` -> a tuple of tensors,
+    writes them into the epoch's output buffers [max_rows, ...] at the
+    counter's row, and adds 1 to the counter.  With ``capture``, the first
+    step runs eagerly on a side stream (a real row of the epoch), then the
+    step is captured once as a CUDA graph in ``pool`` (``generators``
+    registered with it) and every later row is a replay; without, every
+    row runs the step eagerly.
+
+    A graph binds its tensors by address: ``ds`` and ``rows`` must not be
+    rebuilt or ``replace``d while this object is in use.
+    """
+
+    def __init__(self, body: Callable[[GraphBatch], tuple],
+                 ds: DeviceDataset, rows: torch.Tensor,
+                 counter: torch.Tensor, capture: bool, pool=None,
+                 generators=()):
+        self.body = body
+        self.ds = ds
+        self.rows = rows
+        self.counter = counter
+        self.capture = capture
+        self.pool = pool
+        self.generators = tuple(generators)
+        self.outs: tuple | None = None
+        self.graph: CapturedStep | None = None
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays
+
+    def _step(self) -> None:
+        row = self.rows.index_select(0, self.counter).reshape(-1)
+        outs = self.body(assemble(self.ds, row))
+        if self.outs is None:
+            self.outs = tuple(
+                torch.zeros((self.rows.shape[0],) + tuple(o.shape),
+                            dtype=o.dtype, device=o.device) for o in outs)
+        for buf, o in zip(self.outs, outs):
+            buf.index_copy_(0, self.counter, o.detach().unsqueeze(0))
+        self.counter.add_(1)
+
+    def load(self, perm) -> int:
+        """Copy the epoch's permutation [NB, B] into the buffer and reset
+        the counter; returns NB."""
+        nb = len(perm)
+        self.rows[:nb].copy_(torch.as_tensor(perm))
+        self.counter.zero_()
+        return nb
+
+    def step(self) -> None:
+        """The next row: eager, or the first eager and captured, or a
+        replay."""
+        if not self.capture:
+            self._step()
+        elif self.graph is None:
+            run_on_side_stream(self._step)
+            self.graph = CapturedStep(self._step, self.pool, self.generators)
+        else:
+            self.graph()
+
+    def __call__(self, perm, step_seconds: list | None = None) -> tuple:
+        """Run the epoch over ``perm``; returns the output buffers' first
+        NB rows (views: the next epoch overwrites them).  With
+        ``step_seconds``, each step ends in a device sync and its wall
+        seconds from launch are appended there."""
+        nb = self.load(perm)
+        for _ in range(nb):
+            t0 = time.perf_counter()
+            self.step()
+            if step_seconds is not None:
+                if self.rows.is_cuda:
+                    torch.cuda.synchronize(self.rows.device)
+                step_seconds.append(time.perf_counter() - t0)
+        return tuple(b[:nb] for b in self.outs)
+
+
+def make_epoch_fn(model: torch.nn.Module, opt, ds: DeviceDataset,
+                  batch_size: int, max_rows: int, loss_fn: str,
+                  node_level: bool = False,
+                  compat_sigmoid_score: bool = False,
+                  generator: torch.Generator | None = None,
+                  capture: bool | None = None) -> tuple:
+    """The train and eval epochs over ``ds`` (the JAX ``make_epoch_fn``).
+
+    Returns (train_epoch, eval_epoch), two :class:`RowSteps`:
+      train_epoch(perm [NB, B]) -> (losses [NB], scores, trues, masks),
+        each row a train step (forward, ``criterion``, backward, ``opt``'s
+        update; dropout from ``generator``), the model and ``opt`` updated
+        in place;
+      eval_epoch(perm) -> the same outputs of eval steps.
+    NB is at most ``max_rows``.  Both share one static permutation buffer
+    and one counter, and, captured (``capture``: by default on a CUDA
+    device), one memory pool: the train step is captured after the fit's
+    first train row, the eval step after its first eval row.  ``opt`` must
+    then be built ``capturable``.  The graphs read ``ds`` by address: the
+    dataset must not be rebuilt or ``replace``d after the epochs are made
+    (the HSCN pipeline makes them after clustering has written the
+    clusters).
+    """
+    from graph_hscn_tpu_torch.train.loop import make_train_step
+    dev = ds.nodes.device
+    capture = resolve_capture(capture, dev)
+    train_step, eval_step = make_train_step(
+        model, opt, loss_fn, node_level=node_level,
+        compat_sigmoid_score=compat_sigmoid_score, generator=generator)
+    rows, counter, pool = row_buffers(max_rows, batch_size, dev, capture)
+    gens = () if generator is None else (generator,)
+    return (RowSteps(train_step, ds, rows, counter, capture, pool, gens),
+            RowSteps(eval_step, ds, rows, counter, capture, pool, gens))

@@ -22,8 +22,10 @@ import numpy as np
 import torch
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
-from graph_hscn_tpu_torch.train.device_data import (DeviceDataset, assemble,
-                                                    epoch_permutation)
+from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
+                                                    epoch_permutation,
+                                                    make_epoch_fn,
+                                                    resolve_capture)
 from graph_hscn_tpu_torch.train.loss import criterion
 from graph_hscn_tpu_torch.train.metrics import METRICS
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
@@ -49,6 +51,9 @@ class FitResult:
     step_seconds: list = dataclasses.field(default_factory=list)
     # The HSCN pipeline's clustering epochs' mean losses.
     cluster_losses: list = dataclasses.field(default_factory=list)
+    # Replays of the captured train and eval steps (the device route on
+    # the card): each epoch's rows but a fit's first train and eval row.
+    replays: dict = dataclasses.field(default_factory=dict)
 
 
 def run_fit_loop(training_cfg, logger, train_epoch, evaluate,
@@ -148,9 +153,11 @@ def fit(model: torch.nn.Module,
     train step in a device sync and records its wall time.
     """
     device = torch.device(device)
-    train_step, eval_step, runner = _setup(
-        model, optim_cfg, training_cfg, device, node_level,
-        compat_sigmoid_score, step_timing)
+    opt, dropout_gen, runner = _setup(model, optim_cfg, training_cfg, device,
+                                      step_timing)
+    train_step, eval_step = make_train_step(
+        model, opt, training_cfg.loss_fn, node_level=node_level,
+        compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen)
     eval_sets = {"val": val_batches, "test": test_batches}
 
     def move(batch: GraphBatch) -> GraphBatch:
@@ -165,24 +172,22 @@ def fit(model: torch.nn.Module,
 
 
 def _setup(model, optim_cfg, training_cfg, device: torch.device,
-           node_level: bool, compat_sigmoid_score: bool, step_timing: bool):
-    """The optimizer, the train and eval steps, and the epoch runner of a
-    fit.  Dropout draws its bits from one generator on the device, seeded
-    with ``training.seed`` and advanced step by step (the counterpart of
-    the JAX ``fold_in(state.rng, state.step)``)."""
+           step_timing: bool, capturable: bool = False):
+    """The optimizer, the dropout generator and the epoch runner of a fit.
+    Dropout draws its bits from one generator on the device, seeded with
+    ``training.seed`` and advanced step by step (the counterpart of the
+    JAX ``fold_in(state.rng, state.step)``)."""
     opt = build_optimizer(model.parameters(), optim_cfg.optim_type,
                           optim_cfg.lr, optim_cfg.weight_decay,
                           optim_cfg.batch_accumulation,
                           optim_cfg.clip_grad_norm,
                           schedule=optim_cfg.schedule,
-                          warmup_steps=optim_cfg.warmup_steps)
+                          warmup_steps=optim_cfg.warmup_steps,
+                          capturable=capturable)
     dropout_gen = torch.Generator(device=device)
     dropout_gen.manual_seed(training_cfg.seed)
-    train_step, eval_step = make_train_step(
-        model, opt, training_cfg.loss_fn, node_level=node_level,
-        compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen)
     runner = _StepRunner(METRICS[training_cfg.metric], device, step_timing)
-    return train_step, eval_step, runner
+    return opt, dropout_gen, runner
 
 
 class _StepRunner:
@@ -197,6 +202,7 @@ class _StepRunner:
         self.step_timing = step_timing
         self.counts = {"train": 0, "eval": 0}
         self.step_seconds: list[float] = []
+        self.replays = {"train": 0, "eval": 0}
 
     def run(self, items: Iterable, prepare: Callable, step, kind: str):
         """``prepare(item)`` makes the step's batch on the device."""
@@ -210,10 +216,26 @@ class _StepRunner:
                     torch.cuda.synchronize(self.device)
                 self.step_seconds.append(time.perf_counter() - t0)
         losses, scores, trues, masks = zip(*outs)
-        y_pred = torch.cat(scores).cpu().numpy()
-        y_true = torch.cat(trues).cpu().numpy()
-        m = torch.cat(masks).cpu().numpy()
-        loss = float(np.mean(torch.stack(losses).cpu().numpy()))
+        return self.collect(torch.stack(losses), torch.cat(scores),
+                            torch.cat(trues), torch.cat(masks))
+
+    def run_rows(self, epoch_fn, perm: np.ndarray, kind: str):
+        """An epoch of the device route: ``epoch_fn`` (a
+        ``device_data.RowSteps``) over the rows of ``perm``."""
+        timed = self.step_timing and kind == "train"
+        outs = epoch_fn(perm, self.step_seconds if timed else None)
+        self.counts[kind] += len(perm)
+        self.replays[kind] = epoch_fn.replays
+        return self.collect(*outs)
+
+    def collect(self, losses, scores, trues, masks):
+        """(mean loss, metric) of an epoch's outputs: losses [R], scores
+        and trues [..., C], masks [...] on the device (the JAX
+        ``_collect``)."""
+        y_pred = scores.reshape(-1, scores.shape[-1]).cpu().numpy()
+        y_true = trues.reshape(-1, trues.shape[-1]).cpu().numpy()
+        m = masks.reshape(-1).cpu().numpy()
+        loss = float(np.mean(losses.cpu().numpy()))
         return loss, self.metric_fn(y_true[m], y_pred[m])
 
     def result(self, model, best, history, stopped, epochs_run) -> FitResult:
@@ -221,7 +243,8 @@ class _StepRunner:
                          stopped_early=stopped, epochs_run=epochs_run,
                          num_train_steps=self.counts["train"],
                          num_eval_batches=self.counts["eval"],
-                         step_seconds=self.step_seconds)
+                         step_seconds=self.step_seconds,
+                         replays=dict(self.replays))
 
 
 def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
@@ -255,36 +278,46 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
                           device: torch.device | str,
                           node_level: bool = False,
                           compat_sigmoid_score: bool = False,
-                          step_timing: bool = False) -> FitResult:
+                          step_timing: bool = False,
+                          capture: bool | None = None) -> FitResult:
     """:func:`fit_device` on a prebuilt DeviceDataset.
 
-    The JAX package runs each epoch as one ``lax.scan`` over the
-    permutation's rows; here it is a Python loop over the rows of the
-    permutation, copied to the device once an epoch.
+    Each epoch runs through :func:`device_data.make_epoch_fn`, as the JAX
+    package's through its one ``lax.scan`` program: the epoch's [NB, B]
+    permutation is copied to the device once, every row is one step (on
+    the card a replay of the step captured once as a CUDA graph), and the
+    outputs come back in one readback at the end.  ``capture``: None
+    captures on a CUDA device; False runs the same steps (the same
+    capturable optimizer) eagerly row by row, the yardstick that the card
+    tests and ``chip_smoke.py`` hold the captured fit against (no config
+    sets it).  A capture or replay that fails raises.
     """
     device = torch.device(device)
+    capture = resolve_capture(capture, device)
     counts = {k: len(v) for k, v in split_ids.items()}
-    train_step, eval_step, runner = _setup(
-        model, optim_cfg, training_cfg, device, node_level,
-        compat_sigmoid_score, step_timing)
+    # On the card the optimizer is capturable whether or not the steps are
+    # captured, so that the eager yardstick does the same arithmetic.
+    opt, dropout_gen, runner = _setup(model, optim_cfg, training_cfg, device,
+                                      step_timing,
+                                      capturable=device.type == "cuda")
 
-    def split_perm(name, seed, shuffle) -> torch.Tensor:
+    def split_perm(name, seed, shuffle) -> np.ndarray:
         p = epoch_permutation(counts[name], batch_size, seed, shuffle)
         ids = np.asarray(split_ids[name])
-        p = np.where(p >= 0, ids[np.clip(p, 0, None)], -1).astype(np.int32)
-        return torch.from_numpy(p).to(device)
+        return np.where(p >= 0, ids[np.clip(p, 0, None)], -1).astype(np.int32)
 
     eval_perms = {"val": split_perm("val", 0, False),
                   "test": split_perm("test", 0, False)}
-
-    def gather(row: torch.Tensor) -> GraphBatch:
-        return assemble(ds, row)
+    max_rows = max(-(-n // batch_size) for n in counts.values())
+    train_epoch, eval_epoch = make_epoch_fn(
+        model, opt, ds, batch_size, max_rows, training_cfg.loss_fn,
+        node_level=node_level, compat_sigmoid_score=compat_sigmoid_score,
+        generator=dropout_gen, capture=capture)
 
     best, history, stopped, epochs_run = run_fit_loop(
         training_cfg, logger,
-        lambda epoch: runner.run(
-            split_perm("train", training_cfg.seed + epoch, True), gather,
-            train_step, "train"),
-        lambda split: runner.run(eval_perms[split], gather, eval_step,
-                                 "eval"))
+        lambda epoch: runner.run_rows(
+            train_epoch, split_perm("train", training_cfg.seed + epoch, True),
+            "train"),
+        lambda split: runner.run_rows(eval_epoch, eval_perms[split], "eval"))
     return runner.result(model, best, history, stopped, epochs_run)

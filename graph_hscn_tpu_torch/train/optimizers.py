@@ -12,6 +12,13 @@ torch's own optimizers, with the same rules:
   ``g / (sqrt(acc) + eps)``, which steps near-zero gradients differently.
 - Clipping is a global norm of 1.0, applied before the update
   (optax.clip_by_global_norm).
+
+The device-resident route takes ``capturable=True`` on the card, where its
+steps are captured as CUDA graphs (``train/capture.py``): Adam and AdamW
+then keep their step count on the card.
+:class:`RssAdagrad`, the zero fill of :meth:`Optimizer.step` and
+:func:`clip_grad_norm` are tensor arithmetic with no branch on a tensor's
+value, so they capture as they are.
 """
 
 from __future__ import annotations
@@ -95,7 +102,10 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], optim_type: str,
                     batch_accumulation: int = 1,
                     clip_grad_norm: bool = False,
                     schedule: str = "constant",
-                    warmup_steps: int = 0) -> Optimizer:
+                    warmup_steps: int = 0,
+                    capturable: bool = False) -> Optimizer:
+    """``capturable``: build Adam and AdamW for a step captured as a CUDA
+    graph (their step count on the card; the parameters must be there)."""
     if batch_accumulation > 1:
         raise NotImplementedError(
             "optim.batch_accumulation > 1: ROADMAP queue A, item 5")
@@ -106,10 +116,12 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], optim_type: str,
     t = optim_type.lower()
     if t == "adamw":
         opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=weight_decay)
+                                weight_decay=weight_decay,
+                                capturable=capturable)
     elif t == "adam":
         opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                               weight_decay=weight_decay)
+                               weight_decay=weight_decay,
+                               capturable=capturable)
     elif t == "adagrad":
         opt = RssAdagrad(params, lr=lr, weight_decay=weight_decay,
                          eps=1e-10)

@@ -975,3 +975,198 @@ def test_sparse_hscn_on_the_card_matches_the_cpu():
     for ref, got in zip(outs["cpu"], outs["cuda"]):
         assert bool(got.isfinite().all())
         assert_close(got, ref, 1e-4)
+
+
+# --- the captured epoch (train/device_data.py:make_epoch_fn) ---------------
+
+def epoch_setup(fused: bool, num_graphs: int = 44, dropout: float = 0.2):
+    """A small peptides device dataset on the card (44 graphs: 6 train rows
+    of 4, the last with dummy slots) and a model of 3 layers, hidden 16,
+    with dropout, its weights from seed 0."""
+    from graph_hscn_tpu_torch.data.synthetic import make_peptides_func
+    from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
+    from graph_hscn_tpu_torch.models.mpnn import MPNN
+    from graph_hscn_tpu_torch.train.device_data import DeviceDataset
+    graphs = make_peptides_func(num_graphs=num_graphs, seed=12,
+                                mean_nodes=30)
+    ds = DeviceDataset.build(graphs, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    if fused:
+        model = FusedDenseGCN(9, 16, 10, 3, dropout=dropout, generator=gen)
+    else:
+        model = MPNN(conv_type="gcn", activation="relu", num_features=9,
+                     hidden_channels=16, num_classes=10, num_layers=3,
+                     dropout=dropout, generator=gen)
+    split_ids = {"train": np.arange(22), "val": np.arange(22, 33),
+                 "test": np.arange(33, num_graphs)}
+    return ds, model, split_ids
+
+
+def fit_captured(model, ds, split_ids, capture, epochs=2):
+    from graph_hscn_tpu_torch.config.config import OptimConfig, TrainingConfig
+    from graph_hscn_tpu_torch.train.loop import fit_on_device_dataset
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    training = TrainingConfig(model_type="gcn", loss_fn="cross_entropy",
+                              metric="ap", epochs=epochs, eval_period=1,
+                              patience=50, min_delta=0.0, seed=3)
+    return fit_on_device_dataset(
+        model, ds, split_ids, 4, OptimConfig(optim_type="adamW", lr=0.01,
+                                             weight_decay=5e-4),
+        training, Logger(metric_name="ap"), "cuda", capture=capture)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_captured_fit_follows_the_eager_fit(fused):
+    """fit_on_device_dataset captured (train and eval steps as CUDA graphs,
+    each row a replay) against the same fit run eagerly row by row (the
+    same capturable AdamW), from the same weights, dropout 0.2 from the
+    same generator seed: every
+    epoch's train, val and test loss within 1e-4 relative, and the weights
+    after at 1e-4*max|ref|.  The replays draw the eager steps' dropout bits
+    (a different draw moves the losses by far more).  The fused stack's
+    launches: one fused_gcn_fwd a train step and an eval batch, one
+    fused_gcn_bwd a train step, replays included."""
+    need_card()
+    import copy
+    ds, model, split_ids = epoch_setup(fused)
+    results = {}
+    for capture in (True, False):
+        m = copy.deepcopy(model).cuda()
+        f0, b0 = fused_gcn_fwd.launches, fused_gcn_bwd.launches
+        res = fit_captured(m, ds, split_ids, capture)
+        steps, evals = res.num_train_steps, res.num_eval_batches
+        assert (steps, evals) == (12, 2 * (3 + 3))
+        assert fused_gcn_fwd.launches - f0 == (steps + evals if fused else 0)
+        assert fused_gcn_bwd.launches - b0 == (steps if fused else 0)
+        assert res.replays == ({"train": steps - 1, "eval": evals - 1}
+                               if capture else {"train": 0, "eval": 0})
+        results[capture] = res
+    for got, ref in zip(results[True].history, results[False].history):
+        for key in ("train_loss", "validation_loss", "test_loss"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-4)
+    want = results[False].model.state_dict()
+    for name, p in results[True].model.state_dict().items():
+        assert_close(p, want[name], 1e-4)
+
+
+def test_capture_and_replays_do_not_sync_with_the_host():
+    """The fused stack's train and eval epochs (the eager first rows, the
+    captures and the replays) under torch.cuda.set_sync_debug_mode("error"):
+    no step syncs with the host.  Only the permutation's upload and the
+    readback sit outside."""
+    need_card()
+    from graph_hscn_tpu_torch.train.device_data import (epoch_permutation,
+                                                        make_epoch_fn)
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    ds, model, _ = epoch_setup(True)
+    model = model.cuda()
+    opt = build_optimizer(model.parameters(), "adamW", 0.01, 5e-4,
+                          capturable=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    train_epoch, eval_epoch = make_epoch_fn(
+        model, opt, ds, 4, 11, "cross_entropy", generator=gen)
+    for epoch_fn, perm in ((train_epoch, epoch_permutation(44, 4, 0)),
+                           (eval_epoch, epoch_permutation(44, 4, 0, False))):
+        for _ in range(2):
+            nb = epoch_fn.load(perm)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(nb):
+                    epoch_fn.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            losses = epoch_fn.outs[0][:nb].cpu()
+            assert bool(losses.isfinite().all())
+        assert epoch_fn.replays == 2 * nb - 1
+
+
+def test_capturable_adamw_follows_the_plain_one():
+    """AdamW built capturable (its step count on the card) against the plain
+    one over 5 steps on the same gradients: the weights within 1e-6."""
+    need_card()
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    rng = np.random.default_rng(5)
+    w0 = [torch.tensor(rng.normal(size=s).astype(np.float32))
+          for s in ((16, 9), (16,), (10, 16))]
+    grads = [[torch.tensor(rng.normal(size=w.shape).astype(np.float32))
+              for w in w0] for _ in range(5)]
+    final = {}
+    for flag in (True, False):
+        params = [torch.nn.Parameter(w.cuda()) for w in w0]
+        opt = build_optimizer(params, "adamW", 0.01, 5e-4, capturable=flag)
+        for gs in grads:
+            opt.zero_grad()
+            for p, g in zip(params, gs):
+                p.grad = g.cuda()
+            opt.step()
+        final[flag] = params
+    for got, ref in zip(final[True], final[False]):
+        torch.testing.assert_close(got.detach().cpu(), ref.detach().cpu(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_captured_clustering_follows_the_eager_one():
+    """train_clustering_device (SCN mp_units [16, 16], K=4) on 24 peptides
+    graphs in batches of 8, 2 epochs, captured and eager from the same
+    weights: the epochs' losses within 1e-5 relative and the same
+    assignments on every node whose top two values differ by more than
+    1e-5; no kernel launches (the batches carry no plan)."""
+    need_card()
+    import copy
+
+    from graph_hscn_tpu_torch.config.config import HSCNConfig, OptimConfig
+    from graph_hscn_tpu_torch.data.synthetic import make_peptides_func
+    from graph_hscn_tpu_torch.models.scn import build_scn
+    from graph_hscn_tpu_torch.train.capture import counted_kernels
+    from graph_hscn_tpu_torch.train.clustering import train_clustering_device
+    from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
+                                                        assemble)
+
+    class Quiet:
+        def info(self, msg):
+            pass
+
+    graphs = make_peptides_func(num_graphs=24, seed=13, mean_nodes=30)
+    ds = DeviceDataset.build(graphs, device="cuda", with_cluster=True)
+    hcfg = HSCNConfig(mp_units=[16, 16], num_clusters=4, cluster_epochs=2)
+    scn = build_scn(hcfg, 9, ds.slot,
+                    generator=torch.Generator().manual_seed(2))
+    out = {}
+    before = [k.launches for k in counted_kernels()]
+    for capture in (True, False):
+        m = copy.deepcopy(scn).cuda()
+        out[capture] = (m,) + train_clustering_device(
+            Quiet(), ds, 8, m, hcfg, OptimConfig(optim_type="adamW",
+                                                 lr=0.01,
+                                                 weight_decay=5e-4),
+            seed=3, capture=capture)
+    assert [k.launches for k in counted_kernels()] == before
+    np.testing.assert_allclose(out[True][2], out[False][2], rtol=1e-5)
+    m, ds_eager, _ = out[False]
+    with torch.no_grad():
+        s = m(assemble(ds_eager, torch.arange(24, dtype=torch.int32,
+                                              device="cuda")))[0]
+    top = s.topk(2, dim=-1).values
+    clear = ((top[:, 0] - top[:, 1]) > 1e-5).reshape(24, -1).cpu()
+    got, ref = out[True][1].cluster.cpu(), ds_eager.cluster.cpu()
+    assert torch.equal(got[clear], ref[clear])
+
+
+def test_a_host_sync_in_the_step_makes_the_captured_fit_raise():
+    """A model whose forward syncs with the host (``.item()``) trains
+    eagerly but cannot be captured: the captured fit raises at its capture
+    and does not go back to the eager loop.  (Last in the file: a failed
+    capture is left to the process to clean up.)"""
+    need_card()
+    ds, model, split_ids = epoch_setup(False)
+
+    class Syncing(type(model)):
+        def forward(self, batch, generator=None):
+            out = super().forward(batch, generator=generator)
+            return out * (1.0 + 0.0 * float(out.sum().item()))
+
+    model.__class__ = Syncing
+    model = model.cuda()
+    with pytest.raises(RuntimeError):
+        fit_captured(model, ds, split_ids, capture=True, epochs=1)
+    torch.cuda.synchronize()
