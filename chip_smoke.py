@@ -49,7 +49,11 @@ Phases; any failure exits non-zero:
                - csr_spmm at the VOC sparse HSCN batch (N=5072, 19456 edge
                  slots, F=32 float32, the ll GCNConv's width): forward and
                  transpose (order), each with its launch plan, timed cold
-                 with the warm time beside, its bound and torch.sparse.mm.
+                 with the warm time beside, its bound and torch.sparse.mm;
+               - csr_spmm at the peptides GIN batch on sparse batches (the
+                 first train batch with its CSR plan, the 0/1 edge mask as
+                 weights): forward at F=9 (layer 0) and F=16, transpose
+                 (order) at F=16, as for the HSCN batch.
                Device times: CUDA events over calls queued behind a device
                sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
@@ -66,10 +70,20 @@ Phases; any failure exits non-zero:
                configs/GAT/peptides_func_GAT.yaml,
                configs/GatedGCN/voc_superpixels_GatedGCN_sparse.yaml,
                configs/GatedGCN/peptides_struct_GatedGCN.yaml,
-               configs/GCN/voc_superpixels_GCN.yaml, and the
+               configs/GCN/voc_superpixels_GCN.yaml, the
                HSCN pipeline (clustering and HSCN, 2 epochs each) on
                configs/HSCN/voc_superpixels_HSCN_sparse.yaml and the four
-               shipped single-device HSCN configs: finite losses (the
+               shipped single-device HSCN configs, then
+               configs/GIN/peptides_func_GIN.yaml (its own route, and on
+               sparse batches: runtime.dense_path sparse, device_dataset
+               off, the host loop with the CSR plan),
+               configs/GPS/peptides_func_GPS.yaml (GCN local module),
+               configs/GPS/peptides_struct_GPS.yaml (GatedGCN local module,
+               cosine schedule with 100 warmup steps),
+               configs/GPS/voc_superpixels_GPS.yaml (node level; graphs
+               past the 512-node slot limit, so the device dataset's slot
+               of 600, as the JAX runner routes it) and
+               configs/GCN/peptides_struct_GCN.yaml: finite losses (the
                clustering's too), and every kernel's launch count from
                that run alone (VOC GCN: 8 csr_spmm a train step, 4 an eval
                batch; fused peptides: one fused_gcn_fwd a train step and an
@@ -77,31 +91,42 @@ Phases; any failure exits non-zero:
                spmm_mh + 12 sddmm_mh a train step, 4 + 8 an eval batch; VOC
                GatedGCN: 20 segment_reduce a train step, 8 an eval batch;
                VOC sparse HSCN: 6 csr_spmm a train step, 3 an eval batch;
-               the unfused device-dataset configs and the shipped HSCN
-               configs: none; no launch while clustering).  The
-               device-dataset configs (peptides, the shipped VOC GCN, the
-               shipped HSCN) take the captured route: each train, eval
+               sparse GIN: 5 csr_spmm a train step (3 forwards, 2
+               transposes), 3 an eval batch; the unfused device-dataset
+               configs, GPS and the shipped HSCN configs: none; no launch
+               while clustering).  The device-dataset configs (peptides,
+               GIN, GPS, the shipped VOC GCN, the shipped HSCN) take the
+               captured route: each train, eval
                and clustering step captured once as a CUDA graph and
                replayed row by row, the launch counts kept by the replay
                accounting; each then runs again eagerly row by row
                (capture=False) and a [capture] line gives both median step
                times, both max_memory_allocated, the replays, and the
                largest relative difference of their per-epoch losses (at
-               most 1e-4).  Then a torch.profiler window over steady train
-               steps of each sparse VOC path, the four peptides paths, the
-               shipped VOC GCN and three HSCN paths (device busy time, idle
-               share, device operations, kernels by time; VOC GCN, GAT and
-               HSCN: their kernels' and the gathers' device time a step);
+               most 1e-4).  An [lr] line: the peptides-struct GPS route's
+               captured optimizer over a 9-epoch horizon (108 rows), the lr
+               read back after every row against the schedule (within
+               1e-7; shown at steps 0, 1, 99, 100 and the last).  Then a
+               torch.profiler window over steady train steps of each
+               sparse VOC path, the four peptides paths, the shipped VOC
+               GCN, three HSCN paths, GIN on both its routes and the
+               three GPS paths (device busy time, idle share, device
+               operations, kernels by time; VOC GCN, GAT, HSCN and sparse
+               GIN: their kernels' and the gathers' device time a step;
+               GPS: the softmax, LayerNorm, matmul, elementwise and
+               reduction kernels' time);
                on the device-dataset paths the replayed step beside the
                eager one, then the replays back to back under CUDA events,
                and on the fused path the fused kernels' launches seen by
                the profiler, which must equal the replay accounting; then
-               each sparse VOC model and the fused stack at full width on
-               a 4-graph batch, on the card and on the CPU: logits and
-               gradients agree; for the VOC sparse HSCN (virtual feedback
-               on) its SCN's assignments too.
-The last three lines are the {"kernels": [...]} record, nvidia-smi's line, and
-{"ok": true, "device": {...}}.
+               each sparse VOC model, the GIN on sparse batches and the
+               fused stack at full width on a 4-graph batch, on the card
+               and on the CPU: logits and gradients agree; for the VOC
+               sparse HSCN (virtual feedback on) its SCN's assignments
+               too.
+A [time] line gives the script's wall time.  The last three lines are the
+{"kernels": [...]} record, nvidia-smi's line, and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -136,6 +161,14 @@ PEPTIDES_HSCN = REPO / "configs" / "HSCN" / "peptides_func_HSCN.yaml"
 SHIPPED_HSCN = [REPO / "configs" / "HSCN" / f"{name}.yaml" for name in (
     "peptides_func_HSCN", "peptides_func_HSCN_parity",
     "peptides_func_HSCN_feedback", "voc_superpixels_HSCN")]
+GIN = REPO / "configs" / "GIN" / "peptides_func_GIN.yaml"
+# The GIN config on sparse batches: the host loop with the CSR plan, each
+# GINConv's aggregation through csr_spmm.
+GIN_SPARSE = {"runtime.dense_path": "sparse", "runtime.device_dataset": "off"}
+GPS_FUNC = REPO / "configs" / "GPS" / "peptides_func_GPS.yaml"
+GPS_STRUCT = REPO / "configs" / "GPS" / "peptides_struct_GPS.yaml"
+GPS_VOC = REPO / "configs" / "GPS" / "voc_superpixels_GPS.yaml"
+PEPTIDES_STRUCT_GCN = REPO / "configs" / "GCN" / "peptides_struct_GCN.yaml"
 HBM_SIDES = (142, 226)   # lattices of N = 20164 and 51076 (B4a, B4b sizes)
 EPOCHS = 2
 FUSED_SEED = 20261016   # the seeded-dropout case's Philox key
@@ -962,11 +995,11 @@ def hscn_data(path: Path):
     return cfg, dm
 
 
-def phase_hscn_kernels() -> None:
-    """csr_spmm (B1) at the VOC sparse HSCN batch, the width of its ll
-    GCNConv (F = hidden 32, float32, gcn-normalized weights without self
-    loops): the forward and the transpose (the weights read in t_order by
-    the kernel), each against its plain version (1e-5 * max|ref|), with its
+def check_spmm_batch(label: str, p, w, cases) -> None:
+    """csr_spmm (B1) on one batch's CSR plan ``p`` with the edge weights
+    ``w`` [E] its model gives the kernel: each (role, F) of ``cases``,
+    float32, role "forward" or "transpose" (the weights read in t_order by
+    the kernel), against its plain version (1e-5 * max|ref|), with its
     launch plan, timed cold (``rotating``) with the warm time beside, its
     bound, the plain version's and torch.sparse.mm's times."""
     import torch
@@ -974,42 +1007,34 @@ def phase_hscn_kernels() -> None:
     from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import (csr_spmm,
                                                            csr_spmm_plain,
                                                            csr_spmm_plan)
-    from graph_hscn_tpu_torch.ops.spmm import gcn_norm_weights
 
-    cfg, dm = hscn_data(VOC_HSCN)
-    dm.with_spmm_plan = True    # the first train batch, as the fit packs it
-    b = next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda")
-    p = b.spmm
-    n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
-    f = cfg.hscn.hidden_channels
-    w, _ = gcn_norm_weights(b.senders, b.receivers, b.edge_mask, n,
-                            add_self_loops=False)
+    n, nnz = p.num_nodes, p.num_edges
     a_csr = csr_tensor(p.row_ptr, p.col, w)
     at_csr = csr_tensor(p.t_row_ptr, p.t_col, w.index_select(0, p.t_order))
     gen = torch.Generator(device="cuda").manual_seed(8)
-    x = torch.randn(n, f, device="cuda", generator=gen)
-    g = torch.randn(n, f, device="cuda", generator=gen)
-    plan = csr_spmm_plan(f, torch.float32)
-    print(f"[kernels] VOC HSCN batch: N={n} E={e} real edges={nnz} "
-          f"graphs={b.num_graphs_padded} F={f}", flush=True)
-    for role, args, nbytes, lib_args in (
-            ("forward", (x, p.row_ptr, p.col, w),
-             n * f * 4 + (n + 1) * 4 + nnz * 8 + n * f * 4, (a_csr, x)),
-            ("transpose", (g, p.t_row_ptr, p.t_col, w, p.t_order),
-             n * f * 4 + (n + 1) * 4 + nnz * 16 + n * f * 4, (at_csr, g))):
+    for role, f in cases:
+        x = torch.randn(n, f, device="cuda", generator=gen)
+        if role == "forward":
+            args = (x, p.row_ptr, p.col, w)
+            nbytes = n * f * 4 + (n + 1) * 4 + nnz * 8 + n * f * 4
+            lib_args = (a_csr, x)
+        else:
+            args = (x, p.t_row_ptr, p.t_col, w, p.t_order)
+            nbytes = n * f * 4 + (n + 1) * 4 + nnz * 16 + n * f * 4
+            lib_args = (at_csr, x)
         out, ref = csr_spmm(*args), csr_spmm_plain(*args)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         tol = 1e-5 * max(float(ref.abs().max()), 1.0)
         if not out.isfinite().all() or err > tol:
-            fail(f"csr_spmm VOC HSCN {role} F={f}: max |err| {err:.3e} > "
+            fail(f"csr_spmm {label} {role} F={f}: max |err| {err:.3e} > "
                  f"tolerance {tol:.3e}")
         lib_ms, why = library_ms(rotating(torch.sparse.mm, *lib_args))
         b_ms, b_by = bound_ms(nbytes, 2.0 * nnz * f)
         k_ms, k_host = time_ms(rotating(csr_spmm, *args))
         warm_ms, _ = time_ms(lambda a=args: csr_spmm(*a))
         p_ms, _ = time_ms(rotating(csr_spmm_plain, *args))
-        print(f"[kernels] VOC HSCN csr_spmm {role:9s} F={f} float32 err "
+        print(f"[kernels] {label} csr_spmm {role:9s} F={f} float32 err "
               f"{err:.2e} (tol {tol:.1e}) device, cold L2: kernel "
               f"{k_ms * 1e3:7.2f} us ({b_ms / k_ms:.2f} of bound)  plain "
               f"{p_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us ({b_by})  "
@@ -1017,7 +1042,55 @@ def phase_hscn_kernels() -> None:
               + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
                  else f"n/a ({why})")
               + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
-              f"{k_host * 1e3:6.2f} us; plan {plan.label()}", flush=True)
+              f"{k_host * 1e3:6.2f} us; plan "
+              f"{csr_spmm_plan(f, torch.float32).label()}", flush=True)
+
+
+def phase_hscn_kernels() -> None:
+    """csr_spmm (B1) at the VOC sparse HSCN batch, the width of its ll
+    GCNConv (F = hidden 32, gcn-normalized weights without self loops):
+    the forward and the transpose (``check_spmm_batch``)."""
+    from graph_hscn_tpu_torch.ops.spmm import gcn_norm_weights
+
+    cfg, dm = hscn_data(VOC_HSCN)
+    dm.with_spmm_plan = True    # the first train batch, as the fit packs it
+    b = next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda")
+    p = b.spmm
+    f = cfg.hscn.hidden_channels
+    w, _ = gcn_norm_weights(b.senders, b.receivers, b.edge_mask,
+                            p.num_nodes, add_self_loops=False)
+    print(f"[kernels] VOC HSCN batch: N={p.num_nodes} E={p.col.numel()} "
+          f"real edges={p.num_edges} graphs={b.num_graphs_padded} F={f}",
+          flush=True)
+    check_spmm_batch("VOC HSCN", p, w, [("forward", f), ("transpose", f)])
+
+
+def phase_gin_kernels() -> None:
+    """csr_spmm (B1) at the peptides GIN batch on sparse batches (the
+    first train batch of ``GIN`` with ``GIN_SPARSE``, as the fit packs it,
+    with its CSR plan), with the weights GINConv gives it (the 0/1 edge
+    mask): the forward at layer 0's width (the node features) and at the
+    hidden width, and the transpose at the hidden width (the dx of layers
+    1 and 2; layer 0's input takes no gradient), each
+    ``check_spmm_batch``."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+
+    cfg = load_with(GIN, GIN_SPARSE)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    dm.with_spmm_plan = True
+    b = next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda")
+    p = b.spmm
+    w = torch.where(b.edge_mask, 1.0, 0.0)
+    f = cfg.mpnn.hidden_channels
+    print(f"[kernels] peptides GIN sparse batch: N={p.num_nodes} "
+          f"E={p.col.numel()} real edges={p.num_edges} "
+          f"graphs={b.num_graphs_padded} F={dm.num_features}, {f}",
+          flush=True)
+    check_spmm_batch("peptides GIN", p, w,
+                     [("forward", dm.num_features), ("forward", f),
+                      ("transpose", f)])
 
 
 def all_kernels():
@@ -1034,18 +1107,30 @@ def all_kernels():
             sddmm_mh, segment_reduce)
 
 
-def train_run(path: Path, expected, label: str = "train") -> tuple:
+def load_with(path: Path, changes: dict | None = None):
+    """The config at ``path`` with ``changes`` ({"section.field": value})
+    set."""
+    from graph_hscn_tpu_torch.config.config import load_config
+    cfg = load_config(path)
+    for key, value in (changes or {}).items():
+        section, field = key.split(".")
+        setattr(getattr(cfg, section), field, value)
+    return cfg
+
+
+def train_run(path: Path, expected, label: str = "train",
+              changes: dict | None = None) -> tuple:
     """One path through run_experiment on the card for EPOCHS epochs, every
     kernel's launch count from that run alone.  ``expected(cfg, steps,
     evals)`` gives the counts the path must show (a kernel it leaves out:
-    0).  Returns ({kernel: launches}, the FitResult, the median step ms,
+    0); ``changes`` are set on the config (``load_with``).  Returns
+    ({kernel: launches}, the FitResult, the median step ms,
     max_memory_allocated above what was allocated at the start)."""
     import torch
 
-    from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.runner import run_experiment
 
-    cfg = load_config(path)
+    cfg = load_with(path, changes)
     cfg.training.epochs = EPOCHS
     cfg.training.eval_period = 1
     if cfg.hscn is not None:
@@ -1066,7 +1151,7 @@ def train_run(path: Path, expected, label: str = "train") -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    tag = f"[{label}] {path.name}"
+    tag = f"[{label}] {path.name}" + (f" {changes}" if changes else "")
     if cfg.hscn is not None:
         cl = result.cluster_losses
         print(f"{tag}: clustering {len(cl)} epochs, losses "
@@ -1219,6 +1304,15 @@ def voc_gatedgcn_launches(cfg, steps, evals):
     return {"segment_reduce": 5 * layers * steps + 2 * layers * evals}
 
 
+def gin_sparse_launches(cfg, steps, evals):
+    """The GIN MPNN on sparse batches: csr_spmm forward in each GINConv,
+    and its transpose for dx in every layer but the first (whose input,
+    the node features, takes no gradient), in a train step; forward in an
+    eval batch; edge_sddmm never (the mask weights carry no gradient)."""
+    layers = cfg.mpnn.num_layers
+    return {"csr_spmm": (2 * layers - 1) * steps + layers * evals}
+
+
 def fused_launches(cfg, steps, evals):
     return {"fused_gcn_fwd": steps + evals, "fused_gcn_bwd": steps}
 
@@ -1346,40 +1440,46 @@ GAT_FOCUS = {"spmm_mh + sddmm_mh kernels": ("spmm_mh_kernel",
              "gathers (index_select, indexing)": ("indexSelect", "gather")}
 
 
-def phase_profile(path: Path, label: str, focus: dict | None = None):
-    """A VOC sparse path's fit-loop body (move the batch, train step)."""
+def phase_profile(path: Path, label: str, focus: dict | None = None,
+                  changes: dict | None = None):
+    """A sparse host-loop path's fit-loop body (move the batch, train
+    step): a VOC sparse config, or a config on sparse batches by
+    ``changes`` (``load_with``)."""
     import torch
 
-    from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.data.pipeline import DataModule
     from graph_hscn_tpu_torch.models.mpnn import build_mpnn
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
     from graph_hscn_tpu_torch.train.loop import make_train_step
     from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
-    cfg = load_config(path)
+    cfg = load_with(path, changes)
+    set_matmul_precision(cfg.runtime.matmul_precision)
     dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
     dm.with_spmm_plan = True
     batches = list(dm.train_batches(epoch_seed=dm.seed))
+    node_level = dm.task_level == "node"
     model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                       readout="none",
+                       compat=cfg.compat.double_relu,
+                       readout="none" if node_level else "mean",
                        generator=torch.Generator().manual_seed(0),
                        num_edge_features=dm.num_edge_features).cuda()
     opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
                           cfg.optim.lr, cfg.optim.weight_decay)
     gen = torch.Generator(device="cuda").manual_seed(0)
     step, _ = make_train_step(model, opt, cfg.training.loss_fn,
-                              node_level=True, generator=gen)
+                              node_level=node_level, generator=gen)
     profile_steps(label, step, lambda i: batches[i % len(batches)].to("cuda"),
                   focus=focus)
 
 
-def phase_reference(path: Path):
-    """A VOC sparse config's full-width model on a 4-graph batch: the card
-    (kernels) against the CPU (plain versions), logits and every parameter
+def phase_reference(path: Path, changes: dict | None = None):
+    """A sparse-batch config's full-width model (``changes`` set on the
+    config) on a 4-graph batch with its CSR plan: the card (kernels)
+    against the CPU (plain versions), logits and every parameter
     gradient."""
     import torch
 
-    from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch
     from graph_hscn_tpu_torch.data.pipeline import DataModule
     from graph_hscn_tpu_torch.models.mpnn import build_mpnn
@@ -1387,14 +1487,15 @@ def phase_reference(path: Path):
     from graph_hscn_tpu_torch.runner import set_matmul_precision
     from graph_hscn_tpu_torch.train.loss import criterion
 
-    cfg = load_config(path)
+    cfg = load_with(path, changes)
     set_matmul_precision(cfg.runtime.matmul_precision)
     dm = DataModule.from_config(cfg.data)
+    node_level = dm.task_level == "node"
     graphs = dm.split("val")[:4]
     batch = pack_batch(graphs, PadBudget.for_dataset(graphs, 4),
                        with_spmm_plan=True)
     model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                       readout="none",
+                       readout="none" if node_level else "mean",
                        generator=torch.Generator().manual_seed(1),
                        num_edge_features=dm.num_edge_features)
     model.eval()
@@ -1406,8 +1507,9 @@ def phase_reference(path: Path):
             m = m.to(dev)
             b = batch.to(dev)
             logits = m(b)
-            loss, _ = criterion("softmax_cross_entropy", logits, b.node_y,
-                                b.node_mask)
+            true, mask = ((b.node_y, b.node_mask) if node_level
+                          else (b.y, b.graph_mask))
+            loss, _ = criterion(cfg.training.loss_fn, logits, true, mask)
             params = list(m.parameters())
             # A parameter the loss does not reach (the last GatedGCN
             # layer's edge LayerNorm) has a zero gradient.
@@ -1422,9 +1524,11 @@ def phase_reference(path: Path):
         err = float((got.cpu() - ref).abs().max())
         tol = 1e-4 * max(float(ref.abs().max()), 1e-3)
         if not got.isfinite().all() or err > tol:
-            fail(f"{path.name} card vs CPU: max |err| {err:.3e} > {tol:.3e}")
+            fail(f"{path.name} {changes or ''} card vs CPU: max |err| "
+                 f"{err:.3e} > {tol:.3e}")
         worst = max(worst, err / max(float(ref.abs().max()), 1e-3))
-    print(f"[reference] {path.name}, 4-graph batch "
+    print(f"[reference] {path.name}{f' {changes}' if changes else ''}, "
+          "4-graph batch "
           f"(N={batch.num_nodes_padded}): logits "
           f"and {len(outs['cpu']) - 1} gradients agree with the CPU, worst "
           f"relative error {worst:.2e}", flush=True)
@@ -1836,39 +1940,112 @@ def train_rows(dm, batch_size: int, seed: int = 0) -> np.ndarray:
         np.int32)
 
 
+def route_optimizer(params, cfg, n_train: int):
+    """The optimizer fit_on_device_dataset builds for ``cfg`` on the card:
+    capturable, with the config's schedule over its horizon (epochs x the
+    rows an epoch of ``n_train`` graphs) and its accumulation."""
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    o = cfg.optim
+    return build_optimizer(
+        params, o.optim_type, o.lr, o.weight_decay, o.batch_accumulation,
+        o.clip_grad_norm, schedule=o.schedule, warmup_steps=o.warmup_steps,
+        total_steps=cfg.training.epochs * -(-n_train // cfg.data.batch_size),
+        capturable=True)
+
+
+# The GPS step's stock-op groups: the attention's softmax, every LayerNorm,
+# every matmul (cuBLAS and CUTLASS gemms: the attention's batched ones and
+# the Dense layers'), every kernel of PyTorch's elementwise_kernel
+# templates (pointwise ops: the mask bias, the scaling, activations, the
+# optimizer's; and the index gathers built on them) and every reduction
+# (its reduce_kernel template).
+GPS_FOCUS = {"softmax (forward, backward)": ("softmax",),
+             "LayerNorm (forward, backward)": ("layer_norm", "GammaBeta"),
+             "gemm (all matmuls)": ("gemm",),
+             "elementwise (pointwise and index kernels)":
+                 ("elementwise_kernel",),
+             "reductions": ("reduce_kernel",)}
+
+
 def phase_profile_peptides(path: Path, label: str, fused: bool = False,
-                           slotted: bool = True):
+                           slotted: bool = True, focus: dict | None = None):
     """A device-dataset train step under the profiler, eager (assemble the
     batch on the card, train step) and then replayed (the step captured by
-    make_epoch_fn, on a copy of the same model)."""
+    make_epoch_fn, on a copy of the same model); the optimizer as the
+    device route builds it (``route_optimizer``)."""
     import torch
 
     from graph_hscn_tpu_torch.train.device_data import (assemble,
                                                         make_epoch_fn)
     from graph_hscn_tpu_torch.train.loop import make_train_step
-    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
     cfg, dm, ds, model = peptides_setup(path, fused, slotted)
     node_level = dm.task_level == "node"
+    n_train = len(dm.split_idx["train"])
     captured = copy.deepcopy(model)
-    # Both with the capturable optimizer of the device route on the card.
-    opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
-                          cfg.optim.lr, cfg.optim.weight_decay,
-                          capturable=True)
+    opt = route_optimizer(model.parameters(), cfg, n_train)
     gen = torch.Generator(device="cuda").manual_seed(0)
     step, _ = make_train_step(model, opt, cfg.training.loss_fn,
                               node_level=node_level, generator=gen)
     perm = train_rows(dm, cfg.data.batch_size)
     rows = torch.as_tensor(perm, device="cuda")
-    profile_steps(label, step, lambda i: assemble(ds, rows[i % len(rows)]))
-    opt = build_optimizer(captured.parameters(), cfg.optim.optim_type,
-                          cfg.optim.lr, cfg.optim.weight_decay,
-                          capturable=True)
+    profile_steps(label, step, lambda i: assemble(ds, rows[i % len(rows)]),
+                  focus=focus)
+    opt = route_optimizer(captured.parameters(), cfg, n_train)
     gen = torch.Generator(device="cuda").manual_seed(0)
     train_epoch, _ = make_epoch_fn(captured, opt, ds, cfg.data.batch_size,
                                    len(perm), cfg.training.loss_fn,
                                    node_level=node_level, generator=gen)
-    profile_replays(label, train_epoch, perm)
+    profile_replays(label, train_epoch, perm, focus=focus)
+
+
+LR_STEPS = (0, 1, 99, 100)
+
+
+def phase_lr_schedule(path: Path, epochs: int = 9):
+    """The lr the captured optimizer uses on a config's device route: the
+    model and optimizer as the route builds them, the horizon of an
+    ``epochs``-epoch fit (108 rows for peptides-struct GPS: its 100 warmup
+    steps and a decay to the end); each row a replay but the first,
+    the lr read back after it.  Every row's lr must be the schedule's at
+    the count of updates already applied, within 1e-7; printed at
+    LR_STEPS and the last row."""
+    import torch
+
+    from graph_hscn_tpu_torch.train.device_data import make_epoch_fn
+    from graph_hscn_tpu_torch.train.optimizers import learning_rate_schedule
+
+    cfg, dm, ds, model = peptides_setup(path, fused=False)
+    cfg.training.epochs = epochs
+    o, B = cfg.optim, cfg.data.batch_size
+    n_train = len(dm.split_idx["train"])
+    horizon = epochs * -(-n_train // B)
+    opt = route_optimizer(model.parameters(), cfg, n_train)
+    sched = learning_rate_schedule(o.lr, o.schedule, o.warmup_steps, horizon)
+    train_epoch, _ = make_epoch_fn(
+        model, opt, ds, B, -(-n_train // B), cfg.training.loss_fn,
+        node_level=dm.task_level == "node",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    used = []
+    for epoch in range(epochs):
+        nb = train_epoch.load(train_rows(dm, B, cfg.training.seed + epoch))
+        for _ in range(nb):
+            train_epoch.step()
+            used.append(float(opt.opt.param_groups[0]["lr"]))
+    want = sched(torch.arange(len(used), dtype=torch.float32)).tolist()
+    worst = max(abs(a - b) for a, b in zip(used, want))
+    shown = ", ".join(f"step {i}: {used[i]:.9g} (schedule {want[i]:.9g})"
+                      for i in (*LR_STEPS, len(used) - 1))
+    print(f"[lr] {path.name}: {o.optim_type} {o.schedule}, warmup "
+          f"{o.warmup_steps}, horizon {horizon} updates, {len(used)} train "
+          f"rows ({train_epoch.replays} replays): {shown}; max |lr - "
+          f"schedule| over every row {worst:.3e} (limit 1e-7)", flush=True)
+    if len(used) <= max(LR_STEPS) or train_epoch.replays != len(used) - 1:
+        fail(f"{path.name}: {len(used)} rows, {train_epoch.replays} "
+             "replays")
+    if not worst <= 1e-7:
+        fail(f"{path.name}: the captured lr is {worst:.3e} from the "
+             "schedule")
 
 
 def phase_profile_hscn(path: Path, label: str, focus: dict | None = None):
@@ -2083,12 +2260,14 @@ def main() -> int:
         import torch  # noqa: F401
     except ImportError:
         fail("PyTorch is not installed")
+    started = time.perf_counter()
     name, count, smi = phase_device()
     build_logs = phase_build()
     kernels = (phase_kernels() + phase_fused_kernels(build_logs)
                + phase_gat_kernels() + phase_gatedgcn_kernels())
     phase_hbm()
     phase_hscn_kernels()
+    phase_gin_kernels()
     # Each path's launches, counted from its own run alone.
     # The device-resident configs (capture_run) train captured, then
     # eagerly beside.
@@ -2109,6 +2288,14 @@ def main() -> int:
     for path in SHIPPED_HSCN:
         capture_run(path, no_launches)
     launches["csr_spmm"] += hscn["csr_spmm"]
+    capture_run(GIN, no_launches)
+    gin = train_run(GIN, gin_sparse_launches, changes=GIN_SPARSE)[0]
+    launches["csr_spmm"] += gin["csr_spmm"]
+    capture_run(GPS_FUNC, no_launches)
+    capture_run(GPS_STRUCT, no_launches)
+    capture_run(GPS_VOC, no_launches)
+    capture_run(PEPTIDES_STRUCT_GCN, no_launches)
+    phase_lr_schedule(GPS_STRUCT)
     phase_profile(CONFIG, "VOC sparse GCN", focus=GCN_FOCUS)
     phase_profile_peptides(PEPTIDES, "peptides unfused GCN")
     phase_profile_peptides(PEPTIDES_FUSED, "peptides fused GCN", fused=True)
@@ -2121,13 +2308,25 @@ def main() -> int:
     phase_profile_hscn(VOC_HSCN, "VOC sparse HSCN", focus=GCN_FOCUS)
     phase_profile_hscn(PEPTIDES_HSCN, "peptides HSCN")
     phase_profile_hscn(SHIPPED_HSCN[2], "peptides HSCN with feedback")
+    phase_profile_peptides(GIN, "peptides GIN, device dataset")
+    phase_profile(GIN, "peptides GIN, sparse batches", focus=GCN_FOCUS,
+                  changes=GIN_SPARSE)
+    phase_profile_peptides(GPS_FUNC, "peptides GPS, GCN local",
+                           focus=GPS_FOCUS)
+    phase_profile_peptides(GPS_STRUCT, "peptides-struct GPS, GatedGCN local",
+                           focus=GPS_FOCUS)
+    phase_profile_peptides(GPS_VOC, "VOC GPS, device dataset", slotted=False,
+                           focus=GPS_FOCUS)
     phase_reference(CONFIG)
     phase_reference_fused()
     phase_reference(VOC_GAT)
     phase_reference(VOC_GATED)
+    phase_reference(GIN, GIN_SPARSE)
     phase_reference_hscn()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    print(f"[time] chip_smoke.py: {time.perf_counter() - started:.1f} s wall "
+          "from the first phase", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,7 +2,8 @@
 
 A flax ``MPNN`` keeps ``{'params': {'GCNConv_i': {'kernel' [in, out],
 'bias' [out]}}}``; the port's ``MPNN`` keeps ``convs.i.weight`` [out, in]
-and ``convs.i.bias``.  A GAT ``MPNN`` keeps ``GATConv_i`` with
+and ``convs.i.bias`` (a GIN conv its MLP's, a LayerNorm its scale and
+bias).  A GAT ``MPNN`` keeps ``GATConv_i`` with
 ``kernel_src`` [in, H*C], ``att_src`` and ``att_dst`` [1, H, C] and
 ``bias``; the port keeps ``convs.i.weight`` [H*C, in], ``att_src``,
 ``att_dst`` and ``bias``.  A flax ``FusedDenseGCN`` keeps ``kernel_i`` [in,
@@ -10,7 +11,8 @@ out] and ``bias_i``, and so does the port's.  A flax ``GatedGCNNet``
 keeps numbered ``Dense_k`` and ``GatedGCNConv_i`` modules, which
 :func:`gatedgcn_params_from_jax` names; a flax ``SCN`` and ``HSCN`` keep
 theirs numbered by class in the order of creation, which
-:func:`scn_params_from_jax` and :func:`hscn_params_from_jax` follow.  With
+:func:`scn_params_from_jax` and :func:`hscn_params_from_jax` follow; a
+flax ``GPSModel`` likewise (:func:`gps_params_from_jax`).  With
 the weights carried across, both packages compute the same function, which
 is how the tests hold one against the other.
 """
@@ -26,15 +28,30 @@ import torch
 def mpnn_params_from_jax(params) -> dict[str, torch.Tensor]:
     """flax MPNN params (the ``'params'`` tree or the whole variables dict,
     leaves convertible with ``np.asarray``) -> the port MPNN's
-    ``state_dict``."""
+    ``state_dict``: ``GCNConv_i``/``GATConv_i``/``GINConv_i`` are
+    ``convs.i`` (a GIN conv's ``Dense_0``/``Dense_1`` its ``mlp.layers.0``
+    and ``.1``), ``LayerNorm_i`` (``use_layer_norm``) ``norms.i``."""
     params = params.get("params", params)
     state = {}
     for name, leaves in params.items():
-        m = re.fullmatch(r"(GCN|GAT)Conv_(\d+)", name)
+        m = re.fullmatch(r"(GCN|GAT|GIN|Layer)(Conv|Norm)_(\d+)", name)
         if m is None:
             raise ValueError(f"unexpected flax module {name!r} (MPNN params "
-                             "hold GCNConv_i or GATConv_i only)")
-        prefix = f"convs.{int(m.group(2))}."
+                             "hold GCNConv_i, GATConv_i, GINConv_i and "
+                             "LayerNorm_i only)")
+        i = int(m.group(3))
+        if m.group(1) == "Layer":
+            state.update(_leaves(f"norms.{i}.", leaves, _LN))
+            continue
+        prefix = f"convs.{i}."
+        if m.group(1) == "GIN":
+            if set(leaves) != {"Dense_0", "Dense_1"}:
+                raise ValueError(f"unexpected flax params {sorted(leaves)} "
+                                 f"in {name}")
+            for k in range(2):
+                state.update(_dense(f"{prefix}mlp.layers.{k}.",
+                                    leaves[f"Dense_{k}"]))
+            continue
         for leaf, value in leaves.items():
             value = np.asarray(value, dtype=np.float32)
             if leaf in ("kernel", "kernel_src"):
@@ -68,10 +85,14 @@ def _dense(prefix: str, leaves) -> dict[str, torch.Tensor]:
     return _leaves(prefix, leaves, {"kernel": "weight", "bias": "bias"})
 
 
+_LN = {"scale": "scale", "bias": "bias"}
+
+
 def gated_gcn_conv_params_from_jax(params) -> dict[str, torch.Tensor]:
     """flax GatedGCNConv params -> the port GatedGCNConv's ``state_dict``:
     ``Dense_0`` .. ``Dense_4`` are A .. E, ``LayerNorm_0`` is x's
-    (``norm_x``) and ``LayerNorm_1`` e's (``norm_e``)."""
+    (``norm_x``) and ``LayerNorm_1`` e's (``norm_e``); with
+    ``norm="none"`` there are no LayerNorms."""
     state = {}
     for name, leaves in params.items():
         if (m := re.fullmatch(r"Dense_([0-4])", name)) is not None:
@@ -119,6 +140,93 @@ def gatedgcn_params_from_jax(params, edge_encoder: bool
                              "GatedGCNNet")
         state.update({f"layers.{int(m.group(1))}.{k}": v for k, v in
                       gated_gcn_conv_params_from_jax(leaves).items()})
+    return state
+
+
+def _mha(prefix: str, params) -> dict[str, torch.Tensor]:
+    """flax GraphMHA params -> the port GraphMHA's: ``query``/``key``/
+    ``value`` kernels [H, nh, hd] and biases [nh, hd], flattened to a
+    Dense's [nh*hd, H] weight and [nh*hd] bias; ``out``'s kernel [nh, hd,
+    H] to a weight [H, nh*hd]."""
+    if set(params) != {"query", "key", "value", "out"}:
+        raise ValueError(f"unexpected flax GraphMHA params {sorted(params)}")
+    state = {}
+    for name, leaves in params.items():
+        kernel = np.asarray(leaves["kernel"], np.float32)
+        if name == "out":
+            kernel = kernel.reshape(-1, kernel.shape[-1])
+        else:
+            kernel = kernel.reshape(kernel.shape[0], -1)
+        state.update(_dense(f"{prefix}{name}.", {
+            "kernel": kernel,
+            "bias": np.asarray(leaves["bias"], np.float32).reshape(-1)}))
+    return state
+
+
+_GPS_LAYER = {"LayerNorm_0": "norm_local", "LayerNorm_1": "norm_global",
+              "LayerNorm_2": "norm_ffn", "Dense_0": "ffn0", "Dense_1": "ffn1",
+              "GCNConv_0": "local", "GatedGCNConv_0": "local",
+              "GraphMHA_0": "attn"}
+
+
+def gps_layer_params_from_jax(params, prefix: str = ""
+                              ) -> dict[str, torch.Tensor]:
+    """flax GPSLayer params -> the port GPSLayer's ``state_dict`` (names
+    after ``prefix``): ``LayerNorm_0/1/2`` the local, global and FFN norms,
+    ``GCNConv_0`` or ``GatedGCNConv_0`` the local module, ``GraphMHA_0``
+    the attention, ``Dense_0/1`` the FFN.  A subtree of these modules maps
+    alone (a GraphMHA's: ``{"GraphMHA_0": ...}``)."""
+    params = params.get("params", params)
+    state = {}
+    for name, leaves in params.items():
+        if name not in _GPS_LAYER:
+            raise ValueError(f"unexpected flax module {name!r} in a "
+                             "GPSLayer")
+        sub = prefix + _GPS_LAYER[name] + "."
+        if name.startswith("LayerNorm_"):
+            state.update(_leaves(sub, leaves, _LN))
+        elif name.startswith("Dense_"):
+            state.update(_dense(sub, leaves))
+        elif name == "GCNConv_0":
+            state.update(_leaves(sub, leaves,
+                                 {"kernel": "weight", "bias": "bias"}))
+        elif name == "GatedGCNConv_0":
+            state.update({sub + k: v for k, v in
+                          gated_gcn_conv_params_from_jax(leaves).items()})
+        else:
+            state.update(_mha(sub, leaves))
+    return state
+
+
+def gps_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax GPSModel params -> the port GPSModel's ``state_dict``.
+
+    flax numbers the model's Dense layers in the order they are created:
+    ``Dense_0`` the input encoder, ``Dense_1`` the edge encoder with the
+    "gatedgcn" local module, then the head (``Dense_1`` with "gcn",
+    ``Dense_2`` with "gatedgcn"); ``LayerNorm_0`` is the final norm and
+    ``GPSLayer_i`` is ``layers.i`` (:func:`gps_layer_params_from_jax`)."""
+    params = params.get("params", params)
+    dense = sorted(int(m.group(1)) for name in params
+                   if (m := re.fullmatch(r"Dense_(\d+)", name)))
+    if dense not in ([0, 1], [0, 1, 2]):
+        raise ValueError(f"flax Dense layers {dense} do not fit a GPSModel")
+    names = (["encoder", "head"] if len(dense) == 2
+             else ["encoder", "edge_encoder", "head"])
+    state = {}
+    for i, name in zip(dense, names):
+        state.update(_dense(name + ".", params[f"Dense_{i}"]))
+    for name, leaves in params.items():
+        if re.fullmatch(r"Dense_\d+", name):
+            continue
+        if name == "LayerNorm_0":
+            state.update(_leaves("norm.", leaves, _LN))
+        elif (m := re.fullmatch(r"GPSLayer_(\d+)", name)) is not None:
+            state.update(gps_layer_params_from_jax(
+                leaves, prefix=f"layers.{int(m.group(1))}."))
+        else:
+            raise ValueError(f"unexpected flax module {name!r} in a "
+                             "GPSModel")
     return state
 
 

@@ -56,6 +56,17 @@ def glorot_uniform_(weight: torch.Tensor,
         return weight.uniform_(-a, a, generator=generator)
 
 
+def lecun_normal_(weight: torch.Tensor,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``lecun_normal`` (the default kernel init of ``nn.Dense``) on a
+    torch [out, in] weight: a normal truncated at two standard deviations,
+    scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / weight.shape[1]) / .87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
@@ -199,6 +210,53 @@ class GraphConv(nn.Module):
             agg = agg + self_weight[:, None] * x
         return (F.linear(agg, self.weight_rel) + F.linear(x, self.weight_root)
                 + self.bias)
+
+
+class GINConv(nn.Module):
+    """GIN, the JAX layer's (layers.py:187-228):
+        X'_i = MLP((1 + eps) x_i + sum_j w_ij x_j),   eps = 0
+    with the MLP ``Dense -> relu -> Dense``, both ``features`` wide
+    (``train_eps`` is off in every config, so eps is the constant 0 and
+    ``(1 + eps) x`` is ``x``).  Branches: for slotted batches the dense one,
+    ``dense_adj`` [G, S, S] the RAW adjacency counts (the MPNN passes GIN
+    no normalization, unlike GCN); else the sparse one through
+    ``gather_scatter``, the edge mask (times ``edge_weight``) as the
+    weights, with the CSR plan when the batch has one (the ``csr_spmm``
+    kernel: forward, and the transpose for dx; the weights take no
+    gradient, so no SDDMM).
+
+    Parameters: ``mlp`` (flax ``Dense_0``, ``Dense_1``).
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.mlp = MLP(in_features, (features, features), dtype=dtype,
+                       generator=generator)
+
+    def forward(self, x, senders, receivers, edge_mask, edge_weight=None,
+                num_nodes=None, dense_adj=None, plan=None):
+        n = num_nodes or x.shape[0]
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+            if dense_adj is not None:
+                dense_adj = dense_adj.to(self.dtype)
+            if edge_weight is not None:
+                edge_weight = edge_weight.to(self.dtype)
+        if dense_adj is not None:
+            G, S = dense_adj.shape[0], dense_adj.shape[-1]
+            agg = torch.bmm(dense_adj, x.reshape(-1, S, x.shape[-1])[:G])
+            agg = F.pad(agg.reshape(-1, x.shape[-1]),
+                        (0, 0, 0, n - G * S))
+        else:
+            w = torch.where(edge_mask, 1.0, 0.0)
+            if edge_weight is not None:
+                w = w * edge_weight
+            agg = gather_scatter(x, senders, receivers, num_nodes=n,
+                                 edge_weight=w, plan=plan)
+        return self.mlp(x + agg)
 
 
 GAT_NEGATIVE_SLOPE = 0.2
@@ -422,12 +480,11 @@ class GatedGCNConv(nn.Module):
         e'_ij = C e_ij + D x_i + E x_j
         eta_ij = sigmoid(e'_ij) / (sum_j' sigmoid(e'_ij') + eps)
         x'_i = A x_i + sum_j eta_ij * (B x_j)
-    then LayerNorm on x' and e', relu, the residuals, and e' zeroed on
+    then (``norm="layer"``) LayerNorm on x' and e', relu, (``residual``)
+    the residuals where the input is ``features`` wide, and e' zeroed on
     padding edges (eps = 1e-6).  Returns (x', e').  Node and edge states go
-    in and come out ``features`` wide, as in the JAX GatedGCNNet, where the
-    widths always match; the JAX layer's other widths (no residual) and its
-    ``residual=False, norm="none"`` serve only its GPS, a later slice of
-    the port.
+    in ``features`` wide, as in both JAX users: GatedGCNNet (residual,
+    LayerNorm) and GPS's local module (``residual=False, norm="none"``).
 
     With a CSR plan and the backend allowing it, the two segment sums and
     the backwards of the three edge gathers run the ``segment_reduce``
@@ -435,20 +492,29 @@ class GatedGCNConv(nn.Module):
     layer forward, 3 backward.  Zeroing e' on padding edges is what keeps
     ``gather_planned``'s contract (zero cotangents there).
 
-    Parameters: ``A`` .. ``E`` (flax ``Dense_0`` .. ``Dense_4``),
-    ``norm_x`` and ``norm_e`` (``LayerNorm_0``, ``LayerNorm_1``).
+    Parameters: ``A`` .. ``E`` (flax ``Dense_0`` .. ``Dense_4``), and with
+    ``norm="layer"`` ``norm_x`` and ``norm_e`` (``LayerNorm_0``,
+    ``LayerNorm_1``).
     """
 
     EPS = 1e-6
 
     def __init__(self, features: int, dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 residual: bool = True, norm: str = "layer"):
         super().__init__()
+        if norm not in ("layer", "none"):
+            raise ValueError(f"GatedGCNConv norm {norm!r}: 'layer' or "
+                             "'none'")
+        self.features = features
         self.dtype = dtype
+        self.residual = residual
         for name in "ABCDE":
             setattr(self, name, Dense(features, features, dtype, generator))
-        self.norm_x = LayerNorm(features, dtype=dtype)
-        self.norm_e = LayerNorm(features, dtype=dtype)
+        self.norm_x = self.norm_e = None
+        if norm == "layer":
+            self.norm_x = LayerNorm(features, dtype=dtype)
+            self.norm_e = LayerNorm(features, dtype=dtype)
 
     def forward(self, x, edge_feat, senders, receivers, edge_mask,
                 num_nodes=None, plan=None):
@@ -464,8 +530,13 @@ class GatedGCNConv(nn.Module):
         msgs = sig * gather_planned(self.B(x), senders, plan, side="sender")
         agg = segment_sum_planned(msgs, receivers, n, plan)
         x_new = self.A(x) + agg / (denom + self.EPS)
-        x_new = x + torch.relu(self.norm_x(x_new))
-        e_new = edge_feat + torch.relu(self.norm_e(e_new))
+        if self.norm_x is not None:
+            x_new, e_new = self.norm_x(x_new), self.norm_e(e_new)
+        x_new, e_new = torch.relu(x_new), torch.relu(e_new)
+        if self.residual and x.shape[-1] == self.features:
+            x_new = x + x_new
+        if self.residual and edge_feat.shape[-1] == self.features:
+            e_new = edge_feat + e_new
         return x_new, torch.where(mask, e_new, 0.0)
 
 
@@ -477,3 +548,24 @@ ACTIVATIONS: dict[str, Callable] = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "identity": lambda x: x,
 }
+
+
+class MLP(nn.Module):
+    """flax ``MLP`` (layers.py:491-505) as GIN uses it: a ``Dense`` a
+    width of ``features``, relu between them, none after the last.
+    Parameters: ``layers.i`` (flax ``Dense_i``)."""
+
+    def __init__(self, in_features: int, features,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [in_features, *features]
+        self.layers = nn.ModuleList(Dense(a, b, dtype, generator)
+                                    for a, b in zip(dims, dims[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x

@@ -3,9 +3,10 @@
 The counterpart of ``graph_hscn_tpu/runner.py`` (the reference's
 run_train, main.py:85-120), its single-device paths:
 
-  MPNN: the GCN or GAT ``MPNN``, ``GatedGCNNet`` or the fused
-        ``FusedDenseGCN``, trained by the host loop ``fit`` or the
-        device-resident ``fit_device``;
+  MPNN: the GCN, GAT or GIN ``MPNN``, ``GatedGCNNet``, the GPS
+        transformer ``GPSModel`` or the fused ``FusedDenseGCN``, trained
+        by the host loop ``fit`` or the device-resident ``fit_device``
+        (on the card its steps captured as CUDA graphs);
   HSCN: SCN MinCUT clustering -> cluster ids on the graphs -> ``HSCN``
         (hscn_pipeline.py), on host batches or the device-resident
         dataset.

@@ -28,6 +28,7 @@ unchanged; index entries of -1 are dummy slots (masked).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable
 
@@ -301,15 +302,22 @@ class RowSteps:
     registered with it) and every later row is a replay; without, every
     row runs the step eagerly.
 
+    A step that takes one of several forms (an optimizer step that only
+    accumulates, or one that applies) has ``body`` a dict {form: body}
+    and ``form()`` the host's choice for the next row, called once a row;
+    each form is run eagerly and captured the first time it comes, and
+    replayed after.
+
     A graph binds its tensors by address: ``ds`` and ``rows`` must not be
     rebuilt or ``replace``d while this object is in use.
     """
 
-    def __init__(self, body: Callable[[GraphBatch], tuple],
+    def __init__(self, body: Callable[[GraphBatch], tuple] | dict,
                  ds: DeviceDataset, rows: torch.Tensor,
                  counter: torch.Tensor, capture: bool, pool=None,
-                 generators=()):
-        self.body = body
+                 generators=(), form: Callable[[], Any] | None = None):
+        self.bodies = body if isinstance(body, dict) else {None: body}
+        self.form = form or (lambda: None)
         self.ds = ds
         self.rows = rows
         self.counter = counter
@@ -317,15 +325,15 @@ class RowSteps:
         self.pool = pool
         self.generators = tuple(generators)
         self.outs: tuple | None = None
-        self.graph: CapturedStep | None = None
+        self.graphs: dict[Any, CapturedStep] = {}
 
     @property
     def replays(self) -> int:
-        return 0 if self.graph is None else self.graph.replays
+        return sum(g.replays for g in self.graphs.values())
 
-    def _step(self) -> None:
+    def _step(self, form) -> None:
         row = self.rows.index_select(0, self.counter).reshape(-1)
-        outs = self.body(assemble(self.ds, row))
+        outs = self.bodies[form](assemble(self.ds, row))
         if self.outs is None:
             self.outs = tuple(
                 torch.zeros((self.rows.shape[0],) + tuple(o.shape),
@@ -343,15 +351,18 @@ class RowSteps:
         return nb
 
     def step(self) -> None:
-        """The next row: eager, or the first eager and captured, or a
-        replay."""
+        """The next row: eager, or the first of its form eager and
+        captured, or a replay."""
+        form = self.form()
         if not self.capture:
-            self._step()
-        elif self.graph is None:
-            run_on_side_stream(self._step)
-            self.graph = CapturedStep(self._step, self.pool, self.generators)
+            self._step(form)
+        elif form not in self.graphs:
+            step = functools.partial(self._step, form)
+            run_on_side_stream(step)
+            self.graphs[form] = CapturedStep(step, self.pool,
+                                             self.generators)
         else:
-            self.graph()
+            self.graphs[form]()
 
     def __call__(self, perm, step_seconds: list | None = None) -> tuple:
         """Run the epoch over ``perm``; returns the output buffers' first
@@ -381,7 +392,9 @@ def make_epoch_fn(model: torch.nn.Module, opt, ds: DeviceDataset,
       train_epoch(perm [NB, B]) -> (losses [NB], scores, trues, masks),
         each row a train step (forward, ``criterion``, backward, ``opt``'s
         update; dropout from ``generator``), the model and ``opt`` updated
-        in place;
+        in place; with gradient accumulation a row's step accumulates or
+        applies as ``opt.next_applies()`` counts it on the host, one form
+        captured for each;
       eval_epoch(perm) -> the same outputs of eval steps.
     NB is at most ``max_rows``.  Both share one static permutation buffer
     and one counter, and, captured (``capture``: by default on a CUDA
@@ -400,5 +413,8 @@ def make_epoch_fn(model: torch.nn.Module, opt, ds: DeviceDataset,
         compat_sigmoid_score=compat_sigmoid_score, generator=generator)
     rows, counter, pool = row_buffers(max_rows, batch_size, dev, capture)
     gens = () if generator is None else (generator,)
-    return (RowSteps(train_step, ds, rows, counter, capture, pool, gens),
+    forms = {applies: functools.partial(train_step, applies=applies)
+             for applies in (False, True)}
+    return (RowSteps(forms, ds, rows, counter, capture, pool, gens,
+                     form=opt.next_applies),
             RowSteps(eval_step, ds, rows, counter, capture, pool, gens))

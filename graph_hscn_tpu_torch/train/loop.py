@@ -121,12 +121,15 @@ def make_train_step(model: torch.nn.Module, opt, loss_fn: str,
                                 compat_sigmoid_score=compat_sigmoid_score)
         return loss, score, true, mask
 
-    def train_step(batch: GraphBatch):
+    def train_step(batch: GraphBatch, applies: bool | None = None):
+        """``applies``: whether the optimizer updates the weights or only
+        accumulates (``batch_accumulation``); None leaves it to the
+        optimizer's count of mini-batches."""
         model.train()
         loss, score, true, mask = loss_and_score(batch, generator)
         opt.zero_grad()
         loss.backward()
-        opt.step()
+        opt.step(applies)
         return loss.detach(), score.detach(), true, mask
 
     @torch.no_grad()
@@ -153,8 +156,14 @@ def fit(model: torch.nn.Module,
     train step in a device sync and records its wall time.
     """
     device = torch.device(device)
+    total_steps = None
+    if optim_cfg.schedule.lower() != "constant":
+        # The schedule's horizon: one counting pass over the packer (host
+        # side, no device work), as the JAX fit does.
+        n_batches = sum(1 for _ in train_batches_fn(0))
+        total_steps = training_cfg.epochs * max(n_batches, 1)
     opt, dropout_gen, runner = _setup(model, optim_cfg, training_cfg, device,
-                                      step_timing)
+                                      step_timing, total_steps)
     train_step, eval_step = make_train_step(
         model, opt, training_cfg.loss_fn, node_level=node_level,
         compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen)
@@ -172,17 +181,20 @@ def fit(model: torch.nn.Module,
 
 
 def _setup(model, optim_cfg, training_cfg, device: torch.device,
-           step_timing: bool, capturable: bool = False):
+           step_timing: bool, total_steps: int | None,
+           capturable: bool = False):
     """The optimizer, the dropout generator and the epoch runner of a fit.
-    Dropout draws its bits from one generator on the device, seeded with
-    ``training.seed`` and advanced step by step (the counterpart of the
-    JAX ``fold_in(state.rng, state.step)``)."""
+    ``total_steps``: the LR schedule's horizon in train steps (None for
+    the constant schedule).  Dropout draws its bits from one generator on
+    the device, seeded with ``training.seed`` and advanced step by step
+    (the counterpart of the JAX ``fold_in(state.rng, state.step)``)."""
     opt = build_optimizer(model.parameters(), optim_cfg.optim_type,
                           optim_cfg.lr, optim_cfg.weight_decay,
                           optim_cfg.batch_accumulation,
                           optim_cfg.clip_grad_norm,
                           schedule=optim_cfg.schedule,
                           warmup_steps=optim_cfg.warmup_steps,
+                          total_steps=total_steps,
                           capturable=capturable)
     dropout_gen = torch.Generator(device=device)
     dropout_gen.manual_seed(training_cfg.seed)
@@ -295,10 +307,11 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     device = torch.device(device)
     capture = resolve_capture(capture, device)
     counts = {k: len(v) for k, v in split_ids.items()}
+    total_steps = training_cfg.epochs * -(-counts["train"] // batch_size)
     # On the card the optimizer is capturable whether or not the steps are
     # captured, so that the eager yardstick does the same arithmetic.
     opt, dropout_gen, runner = _setup(model, optim_cfg, training_cfg, device,
-                                      step_timing,
+                                      step_timing, total_steps,
                                       capturable=device.type == "cuda")
 
     def split_perm(name, seed, shuffle) -> np.ndarray:

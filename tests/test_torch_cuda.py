@@ -977,6 +977,60 @@ def test_sparse_hscn_on_the_card_matches_the_cpu():
         assert_close(got, ref, 1e-4)
 
 
+def test_sparse_gin_on_the_card_matches_the_cpu():
+    """The peptides GIN config's model at full width (hidden 16, 3 layers)
+    on a 4-graph batch with its CSR plan (runtime.dense_path sparse): the
+    0/1 edge mask as csr_spmm's weights, 3 launches forward and 2
+    transposes backward (layer 0's input takes no gradient); logits and
+    every parameter gradient on the card within 1e-4*max|ref| of the
+    CPU's (the kernel's plain version), in eval mode (no dropout) and
+    under the config's ``matmul_precision: highest`` (GIN's unnormalised
+    sums give logits of ~100, which TF32's rounding of the Dense inputs
+    moves by ~4e-4 of their largest)."""
+    need_card()
+    import copy
+    from pathlib import Path
+
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.models.mpnn import build_mpnn
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.loss import criterion
+    cfg = load_config(Path(__file__).parents[1] / "configs" / "GIN"
+                      / "peptides_func_GIN.yaml")
+    cfg.data.num_graphs = 16
+    dm = DataModule.from_config(cfg.data)
+    graphs = dm.split("train")[:4]
+    batch = pack_batch(graphs, PadBudget.for_dataset(graphs, 4),
+                       with_spmm_plan=True)
+    model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
+                       generator=torch.Generator().manual_seed(4))
+    model.eval()
+    outs = {}
+    prev = spmm.get_backend(), torch.get_float32_matmul_precision()
+    spmm.set_backend("pallas")
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    try:
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            b = batch.to(dev)
+            before = csr_spmm.launches
+            logits = m(b)
+            loss, _ = criterion(cfg.training.loss_fn, logits, b.y,
+                                b.graph_mask)
+            loss.backward()
+            outs[dev] = [logits.detach()] + [p.grad for p in m.parameters()]
+            launched = csr_spmm.launches - before
+    finally:
+        spmm.set_backend(prev[0])
+        set_matmul_precision("highest" if prev[1] == "highest"
+                             else "default")
+    assert launched == 2 * cfg.mpnn.num_layers - 1
+    for ref, got in zip(outs["cpu"], outs["cuda"]):
+        assert bool(got.isfinite().all())
+        assert_close(got, ref, 1e-4)
+
+
 # --- the captured epoch (train/device_data.py:make_epoch_fn) ---------------
 
 def epoch_setup(fused: bool, num_graphs: int = 44, dropout: float = 0.2):
@@ -1150,6 +1204,129 @@ def test_captured_clustering_follows_the_eager_one():
     clear = ((top[:, 0] - top[:, 1]) > 1e-5).reshape(24, -1).cpu()
     got, ref = out[True][1].cluster.cpu(), ds_eager.cluster.cpu()
     assert torch.equal(got[clear], ref[clear])
+
+
+def gps_setup(local: str):
+    """A small peptides device dataset on the card (44 graphs; peptides-
+    struct with its 3 edge features for the GatedGCN local module) and a
+    GPSModel of 2 layers, hidden 16, 2 heads, dropout 0.2, weights from
+    seed 0."""
+    from graph_hscn_tpu_torch.data.synthetic import (make_peptides_func,
+                                                     make_peptides_struct)
+    from graph_hscn_tpu_torch.models.gps import GPSModel
+    from graph_hscn_tpu_torch.train.device_data import DeviceDataset
+    make = make_peptides_struct if local == "gatedgcn" else \
+        make_peptides_func
+    graphs = make(num_graphs=44, seed=14, mean_nodes=30)
+    ds = DeviceDataset.build(graphs, device="cuda")
+    nef = 3 if local == "gatedgcn" else None
+    model = GPSModel(9, 16, 11 if nef else 10, 2, 2, dropout=0.2,
+                     local_conv=local, num_edge_features=nef,
+                     generator=torch.Generator().manual_seed(0))
+    split_ids = {"train": np.arange(22), "val": np.arange(22, 33),
+                 "test": np.arange(33, 44)}
+    return ds, model, split_ids
+
+
+def fit_both(model, ds, split_ids, loss_fn, optim):
+    """fit_on_device_dataset captured and eager (capture=False, the same
+    capturable optimizer) from copies of ``model``, 2 epochs of B=4:
+    {capture: FitResult}."""
+    import copy
+
+    from graph_hscn_tpu_torch.config.config import OptimConfig, TrainingConfig
+    from graph_hscn_tpu_torch.train.loop import fit_on_device_dataset
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    metric = "mae" if loss_fn == "l1" else "ap"
+    training = TrainingConfig(model_type="gps", loss_fn=loss_fn,
+                              metric=metric, epochs=2, eval_period=1,
+                              patience=50, min_delta=0.0, seed=3)
+    return {capture: fit_on_device_dataset(
+        copy.deepcopy(model).cuda(), ds, split_ids, 4, OptimConfig(**optim),
+        training, Logger(metric_name=metric), "cuda", capture=capture)
+        for capture in (True, False)}
+
+
+def assert_fits_agree(results, lr_sum):
+    """Captured against eager: every epoch's losses within 1e-4 relative,
+    the weights at 1e-4*max|ref|; an attention key bias (zero gradient in
+    exact arithmetic, moved by rounding noise alone) within the sum of the
+    lrs applied."""
+    for got, ref in zip(results[True].history, results[False].history):
+        for key in ("train_loss", "validation_loss", "test_loss"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-4)
+    want = results[False].model.state_dict()
+    for name, p in results[True].model.state_dict().items():
+        if name.endswith("attn.key.bias"):
+            assert float(p.abs().max()) <= lr_sum
+        else:
+            assert_close(p, want[name], 1e-4)
+
+
+@pytest.mark.parametrize("local", ["gcn", "gatedgcn"])
+def test_captured_gps_fit_follows_the_eager_fit(local):
+    """A GPS fit on the device route, captured against eager, dropout 0.2
+    from the same generator seed, AdamW under the cosine schedule with 3
+    warmup steps (the lr a tensor the captured step writes): 12 train steps,
+    one captured train graph (11 replays)."""
+    need_card()
+    ds, model, split_ids = gps_setup(local)
+    results = fit_both(model, ds, split_ids,
+                       "l1" if local == "gatedgcn" else "cross_entropy",
+                       dict(optim_type="adamW", lr=0.003, weight_decay=5e-4,
+                            schedule="cosine", warmup_steps=3))
+    for res in results.values():
+        assert res.num_train_steps == 12
+    assert results[True].replays["train"] == 11
+    assert results[False].replays == {"train": 0, "eval": 0}
+    assert_fits_agree(results, 12 * 0.003)
+
+
+def test_captured_accumulation_follows_the_eager_fit():
+    """batch_accumulation 2 on the device route (the dense MPNN, dropout
+    0.2, AdamW, cosine with 2 warmup updates over ceil(12 / 2) = 6):
+    captured, two train graphs (accumulate; accumulate and apply), the host
+    picking one a row, against eager; 12 train steps, 10 of them replays."""
+    need_card()
+    ds, model, split_ids = epoch_setup(False)
+    results = fit_both(model, ds, split_ids, "cross_entropy",
+                       dict(optim_type="adamW", lr=0.01, weight_decay=5e-4,
+                            batch_accumulation=2, schedule="cosine",
+                            warmup_steps=2))
+    assert results[True].replays["train"] == 12 - 2
+    assert_fits_agree(results, 6 * 0.01)
+
+
+def test_captured_lr_follows_the_schedule():
+    """The lr the captured optimizer uses, read back after each replayed
+    row: the schedule at the count of updates already applied, within
+    1e-7, at every one of 112 steps (steps 0, 1, 99, 100 and the last
+    among them), with the shipped peptides-struct GPS schedule (AdamW,
+    cosine, 100 warmup steps) over a horizon of 112."""
+    need_card()
+    from graph_hscn_tpu_torch.train.device_data import (epoch_permutation,
+                                                        make_epoch_fn)
+    from graph_hscn_tpu_torch.train.optimizers import (build_optimizer,
+                                                       learning_rate_schedule)
+    ds, model, _ = epoch_setup(False, dropout=0.0)
+    model = model.cuda()
+    total = 112
+    opt = build_optimizer(model.parameters(), "adamW", 0.001, 5e-4,
+                          schedule="cosine", warmup_steps=100,
+                          total_steps=total, capturable=True)
+    sched = learning_rate_schedule(0.001, "cosine", 100, total)
+    train_epoch, _ = make_epoch_fn(model, opt, ds, 4, 11, "cross_entropy")
+    perm = epoch_permutation(44, 4, 0)
+    used = []
+    while len(used) < total:
+        nb = train_epoch.load(perm)
+        for _ in range(min(nb, total - len(used))):
+            train_epoch.step()
+            used.append(float(opt.opt.param_groups[0]["lr"]))
+    assert train_epoch.replays == total - 1
+    want = sched(torch.arange(total, dtype=torch.float32)).numpy()
+    np.testing.assert_allclose(used, want, rtol=0, atol=1e-7)
+    assert used[0] == 0.0 and abs(used[100] - 0.001) <= 1e-7
 
 
 def test_a_host_sync_in_the_step_makes_the_captured_fit_raise():

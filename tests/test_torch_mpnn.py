@@ -178,7 +178,9 @@ def test_gelu_is_the_tanh_form():
 
 @pytest.mark.parametrize("conv_type", ["gat", "gin", "gatedgcn", "gps"])
 def test_build_mpnn_other_convs_are_later_slices(conv_type):
-    """GIN and GPS are later slices.  GAT builds; its convs are not
+    """GIN and GPS build (their MPNN of GINConvs, their GPSModel) and run
+    a forward on a slotted peptides batch (tests/test_torch_gin.py and
+    tests/test_torch_gps.py hold them against JAX).  GAT builds; its convs are not
     bipartite (HSCN's local->virtual relation builds its GATConv with
     dst_features), so a bipartite call on one is refused.  GatedGCN
     builds its GatedGCNNet (with an edge encoder for edge features) and
@@ -187,8 +189,19 @@ def test_build_mpnn_other_convs_are_later_slices(conv_type):
     from graph_hscn_tpu_torch.models.gatedgcn import GatedGCNNet
     cfg = MPNNConfig(conv_type=conv_type, activation="relu", num_heads=1)
     if conv_type in ("gin", "gps"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_mpnn(cfg, 9, 10)
+        from graph_hscn_tpu_torch.models.gps import GPSModel
+        from graph_hscn_tpu_torch.models.layers import GINConv
+        model = build_mpnn(cfg, 9, 10)
+        if conv_type == "gin":
+            assert all(isinstance(c, GINConv) for c in model.convs)
+        else:
+            assert isinstance(model, GPSModel)
+        graphs = js.make_peptides_func(num_graphs=3, seed=5, mean_nodes=20.0)
+        batch = tb.pack_batch(graphs, tb.PadBudget.for_dataset(graphs, 3),
+                              slot_nodes=48).to("cpu")
+        out = model(batch)
+        assert out.shape == (batch.num_graphs_padded, 10)
+        assert torch.isfinite(out).all()
         return
     if conv_type == "gatedgcn":
         model = build_mpnn(cfg, 9, 11, num_edge_features=3)
