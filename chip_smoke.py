@@ -124,6 +124,31 @@ Phases; any failure exits non-zero:
                and on the CPU: logits and gradients agree; for the VOC
                sparse HSCN (virtual feedback on) its SCN's assignments
                too.
+  5. resume  - checkpoints (snapshots under build/chip_smoke/): a 4-epoch
+               fit uninterrupted, then cut after epoch 1's latest snapshot
+               and resumed by a fresh model, optimizer and Checkpointer,
+               on configs/GCN/peptides_func_GCN.yaml (captured, dropout
+               0.2), the sparse VOC GCN (host loop, its csr_spmm launches
+               counted) and configs/GPS/peptides_struct_GPS.yaml (cosine,
+               100 warmup steps; the lr read back after every row against
+               the schedule, within 1e-7): epochs 2-3's train losses
+               within 1e-6 relative of the uninterrupted run's.
+     eval    - run_eval(cfg, "best") on the fused twin and the sparse VOC
+               GCN after a fit with checkpoint_dir: the val loss equal to
+               the fit's best (rtol 1e-5, atol 1e-6), the fused_gcn_fwd
+               and csr_spmm launches counted; `python -m
+               graph_hscn_tpu_torch.main --eval best --predict out.npz` in
+               a subprocess (the four arrays, the real row counts); and the
+               HSCN clusters of the host and device routes on
+               configs/HSCN/peptides_func_HSCN.yaml, compared (printed).
+     pe      - configs/GCN/peptides_func_GCN_PE.yaml as shipped (the
+               frozen SignNet transform; its wall time and the width it
+               leaves, 9) and with compat.frozen_random_signnet false
+               (EncodedModel in the captured graphs), each captured and
+               eager (capture_run); the EncodedModel on a 4-graph batch,
+               card against CPU (1e-4*max|ref|), and batched_eigh on the
+               card against the host stats, in float64 (eigenvalues 1e-5,
+               projectors 1e-4) and float32 (reported).
 A [time] line gives the script's wall time.  The last three lines are the
 {"kernels": [...]} record, nvidia-smi's line, and {"ok": true, "device":
 {...}}.
@@ -137,6 +162,7 @@ import gc
 import itertools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -169,6 +195,11 @@ GPS_FUNC = REPO / "configs" / "GPS" / "peptides_func_GPS.yaml"
 GPS_STRUCT = REPO / "configs" / "GPS" / "peptides_struct_GPS.yaml"
 GPS_VOC = REPO / "configs" / "GPS" / "voc_superpixels_GPS.yaml"
 PEPTIDES_STRUCT_GCN = REPO / "configs" / "GCN" / "peptides_struct_GCN.yaml"
+PEPTIDES_PE = REPO / "configs" / "GCN" / "peptides_func_GCN_PE.yaml"
+TRAINABLE_PE = {"compat.frozen_random_signnet": False}
+# Checkpoints and the predict export of [resume] and [eval]: inside the
+# checkout, in a directory git ignores.
+SCRATCH = REPO / "build" / "chip_smoke"
 HBM_SIDES = (142, 226)   # lattices of N = 20164 and 51076 (B4a, B4b sizes)
 EPOCHS = 2
 FUSED_SEED = 20261016   # the seeded-dropout case's Philox key
@@ -1209,16 +1240,17 @@ def eager_route():
             setattr(m, n, fn)
 
 
-def capture_run(path: Path, expected) -> dict:
+def capture_run(path: Path, expected, changes: dict | None = None) -> dict:
     """A device-resident path twice: captured (the main path, whose
     launches are returned) and eager (``capture=False``), in turn.  Prints
     the [capture] line: both median step times, the largest relative
     difference of their per-epoch train, val and test losses (at most
     1e-4), both max_memory_allocated, and the captured run's replays; the
     launch counts must be the expected ones in both."""
-    launches, got, ms, mem = train_run(path, expected, "train")
+    launches, got, ms, mem = train_run(path, expected, "train", changes)
     with eager_route():
-        _, ref, ms_eager, mem_eager = train_run(path, expected, "eager")
+        _, ref, ms_eager, mem_eager = train_run(path, expected, "eager",
+                                                changes)
     if not got.replays or got.replays["train"] != got.num_train_steps - 1:
         fail(f"{path.name}: captured run replays {got.replays} for "
              f"{got.num_train_steps} train steps")
@@ -2251,6 +2283,436 @@ def phase_reference_fused():
           flush=True)
 
 
+class Interrupted(Exception):
+    """What [resume] raises to cut a fit short, as a killed run stops."""
+
+
+@contextlib.contextmanager
+def interrupted_after(epoch: int):
+    """Within the block, run_experiment's fits raise :class:`Interrupted`
+    right after saving the latest snapshot of ``epoch``."""
+    from graph_hscn_tpu_torch import runner
+    from graph_hscn_tpu_torch.train.checkpoint import Checkpointer
+
+    class Stopping(Checkpointer):
+        def save_latest(self, state, e):
+            super().save_latest(state, e)
+            if e == epoch:
+                raise Interrupted
+
+    runner.Checkpointer = Stopping
+    try:
+        yield
+    finally:
+        runner.Checkpointer = Checkpointer
+
+
+@contextlib.contextmanager
+def recording_lr(into: list):
+    """Within the block, every train row of the device route appends the
+    lr its optimizer used (read back from the card after the row) to
+    ``into``: the optimizers built are kept, and RowSteps.step of a train
+    epoch (the one with accumulate/apply forms) reads the last one's."""
+    from graph_hscn_tpu_torch.train import device_data, loop
+    built = []
+    build, step = loop.build_optimizer, device_data.RowSteps.step
+
+    def keep(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    def recorded(self):
+        step(self)
+        if None not in self.bodies:          # a train epoch
+            into.append(float(built[-1].opt.param_groups[0]["lr"]))
+
+    loop.build_optimizer, device_data.RowSteps.step = keep, recorded
+    try:
+        yield
+    finally:
+        loop.build_optimizer, device_data.RowSteps.step = build, step
+
+
+def resume_cfg(path: Path, directory: Path, changes: dict | None = None):
+    """``path`` for 4 epochs, evaluated and snapshotted every epoch into
+    ``directory``, no early stop."""
+    shutil.rmtree(directory, ignore_errors=True)
+    cfg = load_with(path, changes)
+    cfg.training.epochs, cfg.training.eval_period = 4, 1
+    cfg.training.checkpoint_every, cfg.training.patience = 1, 1000
+    cfg.training.checkpoint_dir = str(directory)
+    return cfg
+
+
+def phase_resume(path: Path, expected, label: str, check_lr: bool = False):
+    """[resume] A 4-epoch fit uninterrupted, then again cut after epoch 1
+    (its latest snapshot saved) and resumed by a fresh model, optimizer
+    and Checkpointer: epochs 2-3's train losses within 1e-6 relative of
+    the uninterrupted run's (the same arithmetic, captured or not, and the
+    same dropout bits).  The resumed run's kernel launches, counted from
+    its run alone, must be ``expected``'s; with ``check_lr``, the lr read
+    back after every train row of both runs equals the schedule at that
+    row's count of applied updates, within 1e-7.  Returns (the resumed
+    run's launches, its FitResult, the config it ran)."""
+    import torch
+
+    from graph_hscn_tpu_torch.runner import run_experiment
+    from graph_hscn_tpu_torch.train.optimizers import learning_rate_schedule
+
+    lrs_full, lrs_resumed = [], []
+    with recording_lr(lrs_full):
+        full = run_experiment(resume_cfg(path, SCRATCH / f"{label}_full"))
+    cfg = resume_cfg(path, SCRATCH / label)
+    with interrupted_after(1):
+        try:
+            run_experiment(cfg)
+        except Interrupted:
+            pass
+        else:
+            fail(f"{path.name}: the cut run was not interrupted")
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    with recording_lr(lrs_resumed):
+        resumed = run_experiment(cfg)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    want = dict.fromkeys(launches, 0)
+    want.update(expected(cfg, resumed.num_train_steps,
+                         resumed.num_eval_batches))
+    epochs = [h["epoch"] for h in resumed.history]
+    got = [h["train_loss"] for h in resumed.history]
+    ref = [h["train_loss"] for h in full.history[2:]]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    print(f"[resume] {path.name}: resumed at epochs {epochs}, train losses "
+          f"{got} against {ref}, max relative difference {worst:.3e} "
+          f"(limit 1e-6); {resumed.num_train_steps} train steps, "
+          f"{resumed.num_eval_batches} eval batches, replays "
+          f"{resumed.replays} (uninterrupted {full.replays}); launches "
+          f"{launches} (expected {want})", flush=True)
+    if epochs != [2, 3] or not worst <= 1e-6:
+        fail(f"{path.name}: the resumed fit does not follow the "
+             "uninterrupted one")
+    if launches != want:
+        fail(f"{path.name}: resumed launches {launches}, want {want}")
+    snapshot_timing(path, SCRATCH / label)
+    if check_lr:
+        o, rows = cfg.optim, full.num_train_steps // 4
+        sched = learning_rate_schedule(o.lr, o.schedule, o.warmup_steps,
+                                       4 * rows)
+        want_lr = sched(torch.arange(4 * rows, dtype=torch.float32)).tolist()
+        errs = [abs(a - b) for a, b in
+                zip(lrs_full + lrs_resumed, want_lr + want_lr[2 * rows:])]
+        print(f"[resume] {path.name}: lr after every row, {len(lrs_full)} "
+              f"uninterrupted and {len(lrs_resumed)} resumed (from row "
+              f"{2 * rows}: {lrs_resumed[0]:.9g}, schedule "
+              f"{want_lr[2 * rows]:.9g}); max |lr - schedule| "
+              f"{max(errs):.3e} (limit 1e-7)", flush=True)
+        if (len(lrs_full) != 4 * rows or len(lrs_resumed) != 2 * rows
+                or not max(errs) <= 1e-7):
+            fail(f"{path.name}: the resumed lr leaves the schedule")
+    return launches, resumed, cfg
+
+
+def snapshot_timing(path: Path, directory: Path, reps: int = 5) -> None:
+    """[resume] The latest snapshot in ``directory`` restored onto the card
+    (a tree of the sizes a fit saves: model, optimizer state, generator),
+    then saved again ``reps`` times each way: synchronous (the whole write
+    on the caller's thread) and asynchronous (the caller's share: the copy
+    to host memory and the thread's start; the fence after, beside it).
+    Prints the snapshot's bytes on disk and the median ms of each."""
+    import torch
+
+    from graph_hscn_tpu_torch.train.checkpoint import Checkpointer
+    state, _ = Checkpointer(directory).restore("latest", "cuda")
+    times = {"sync": [], "async": [], "fence": []}
+    for mode in ("sync", "async"):
+        ck = Checkpointer(SCRATCH / f"timing_{mode}",
+                          async_writes=mode == "async")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save_latest(state, 0)
+            t1 = time.perf_counter()
+            ck.wait()
+            times[mode].append((t1 - t0) * 1e3)
+            if mode == "async":
+                times["fence"].append((time.perf_counter() - t1) * 1e3)
+    size = (SCRATCH / "timing_sync" / "latest").stat().st_size
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[resume] {path.name}: snapshot {size} bytes; save_latest median "
+          f"of {reps}: synchronous {med['sync']:.3f} ms, asynchronous "
+          f"{med['async']:.3f} ms on the caller's thread (+{med['fence']:.3f}"
+          f" ms to the fence)", flush=True)
+
+
+def eval_batches(cfg) -> int:
+    """The host batches run_eval scores for ``cfg`` (val and test)."""
+    import torch
+
+    from graph_hscn_tpu_torch.runner import _data
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    dm = _data(cfg, torch.device("cuda"), Logger())
+    return len(dm.eval_batches("val")) + len(dm.eval_batches("test"))
+
+
+def phase_eval(cfg, best: float, expected) -> dict:
+    """[eval] run_eval(cfg, "best") after a fit into its checkpoint_dir:
+    the val loss equal to the fit's best within rtol=1e-5, atol=1e-6 (the
+    JAX package's criterion, tests/test_checkpoint.py:116-117), and the
+    kernel launches ``expected(cfg, 0, eval batches)``.  Returns the
+    launches."""
+    from graph_hscn_tpu_torch.runner import run_eval
+    n = eval_batches(cfg)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    scores = run_eval(cfg, "best")
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    want = dict.fromkeys(launches, 0)
+    want.update(expected(cfg, 0, n))
+    val = scores["val"]["loss"]
+    name = Path(cfg.training.checkpoint_dir).name
+    print(f"[eval] {name}: run_eval best in {wall:.2f} s, {n} eval batches: "
+          f"val loss {val!r} against the fit's best {best!r} "
+          f"(|diff| {abs(val - best):.3e}, limit 1e-6 + 1e-5 * best); "
+          f"scores {scores}; launches {launches} (expected {want})",
+          flush=True)
+    if not abs(val - best) <= 1e-6 + 1e-5 * abs(best):
+        fail(f"{name}: eval-only val loss {val} is not the fit's best {best}")
+    if launches != want:
+        fail(f"{name}: eval launches {launches}, want {want}")
+    return launches
+
+
+def phase_predict(path: Path, directory: Path) -> None:
+    """[eval] ``python -m graph_hscn_tpu_torch.main --eval best --predict
+    out.npz`` in a subprocess on ``path`` with its checkpoint_dir set to
+    ``directory``: the .npz holds val and test scores and targets with the
+    splits' real row counts (graphs, or nodes at node level)."""
+    import yaml
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    raw = yaml.safe_load(path.read_text())
+    raw["training"]["checkpoint_dir"] = str(directory)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    cfg_file, out = SCRATCH / f"{path.stem}.yaml", SCRATCH / "out.npz"
+    cfg_file.write_text(yaml.safe_dump(raw))
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "graph_hscn_tpu_torch.main", "--cfg",
+         str(cfg_file), "--eval", "best", "--predict", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    if run.returncode != 0:
+        fail(f"main --eval --predict exited {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    z = np.load(out)
+    dm = DataModule.from_config(load_with(path).data)
+    rows = {s: (len(dm.split_idx[s]) if dm.task_level == "graph" else
+                sum(g.num_nodes for g in dm.split(s)))
+            for s in ("val", "test")}
+    shapes = {k: z[k].shape for k in sorted(z.files)}
+    print(f"[eval] main --eval best --predict out.npz ({path.name}) in "
+          f"{time.perf_counter() - t0:.1f} s: {shapes}, real rows {rows}",
+          flush=True)
+    if set(z.files) != {"val_scores", "val_targets", "test_scores",
+                        "test_targets"}:
+        fail(f"predict export holds {z.files}")
+    for s, n in rows.items():
+        for k in ("scores", "targets"):
+            a = z[f"{s}_{k}"]
+            if a.shape != (n, dm.num_classes) or not np.isfinite(a).all():
+                fail(f"predict export {s}_{k}: shape {a.shape}, want "
+                     f"({n}, {dm.num_classes}), finite")
+
+
+def phase_cluster_routes(path: Path) -> None:
+    """[eval] The HSCN clusters of the two routes on ``path`` as shipped:
+    the host clustering (what run_eval re-runs) against the device
+    route's captured clustering (what the device route trains with), from
+    the same SCN weights.  Printed, not judged: JAX's run_eval re-clusters
+    on the host too, so where the two differ, an eval-only score of an
+    HSCN trained on the device route differs from its training run in
+    both packages."""
+    import torch
+
+    from graph_hscn_tpu_torch import hscn_pipeline as hp
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.train.clustering import train_clustering_device
+    from graph_hscn_tpu_torch.train.device_data import DeviceDataset
+    from graph_hscn_tpu_torch.utils.logger import Logger
+
+    cfg = load_with(path)
+    dm = DataModule.from_config(cfg.data)
+    dm.enable_dense_slots()
+    t0 = time.perf_counter()
+    hp.cluster_on_host(cfg, dm, Logger(), torch.device("cuda"))
+    host_s = time.perf_counter() - t0
+    order = np.concatenate([dm.split_idx[s] for s in ("train", "val",
+                                                      "test")])
+    ds = DeviceDataset.build([dm.graphs[i] for i in order],
+                             slot=dm.slot_nodes, device="cuda",
+                             with_cluster=True)
+    scn, _ = hp._models(cfg, dm, ds.slot, torch.device("cuda"), None)
+    t0 = time.perf_counter()
+    ds, _ = train_clustering_device(Logger(), ds, dm.batch_size, scn,
+                                    cfg.hscn, cfg.optim,
+                                    seed=cfg.training.seed)
+    dev = ds.cluster.cpu().numpy()
+    dev_s = time.perf_counter() - t0
+    graphs_alike = nodes_alike = nodes = 0
+    for i, g in enumerate(order):
+        host = dm.graphs[g].cluster
+        same = dev[i, :len(host)] == host
+        graphs_alike += bool(same.all())
+        nodes_alike += int(same.sum())
+        nodes += len(host)
+    print(f"[eval] {path.name}, {cfg.hscn.cluster_epochs} clustering epochs "
+          f"each route: graphs clustered alike {graphs_alike} of "
+          f"{len(order)}, nodes {nodes_alike} of {nodes} (host route "
+          f"{host_s:.2f} s, device route {dev_s:.2f} s)", flush=True)
+
+
+@contextlib.contextmanager
+def timed_posenc(into: dict):
+    """Within the block, runner's attach_posenc records its wall seconds
+    (ending in a device sync) and the feature width it leaves."""
+    import torch
+
+    from graph_hscn_tpu_torch import runner
+    attach = runner.attach_posenc
+
+    def timed(dm, *args, **kwargs):
+        t0 = time.perf_counter()
+        attach(dm, *args, **kwargs)
+        torch.cuda.synchronize()
+        into.update(seconds=time.perf_counter() - t0, graphs=len(dm.graphs),
+                    width=dm.num_features)
+
+    runner.attach_posenc = timed
+    try:
+        yield
+    finally:
+        runner.attach_posenc = attach
+
+
+def phase_pe() -> None:
+    """[pe] configs/GCN/peptides_func_GCN_PE.yaml through run_experiment,
+    captured and eager (capture_run): as shipped (the frozen SignNet
+    transform on the card, then the GCN) and with
+    compat.frozen_random_signnet false (EncodedModel inside the captured
+    graphs); the transform's wall time and the feature width it leaves
+    (9).  Then on a 4-graph batch, card against CPU: the trainable model
+    (SignNet output, logits, every gradient) within 1e-4*max|ref| under
+    matmul_precision highest; batched_eigh on the card against the host
+    stats (float64, numpy's LAPACK in float64): eigenvalues within 1e-5,
+    and the projector onto the k smallest eigenvectors (k <= 6, after the
+    widest spectral gap) within 1e-4; in float32, reported."""
+    info: dict = {}
+    with timed_posenc(info):
+        capture_run(PEPTIDES_PE, no_launches)
+    print(f"[pe] {PEPTIDES_PE.name}: eigen stats and the frozen SignNet "
+          f"transform over {info['graphs']} graphs in {info['seconds']:.2f} "
+          f"s wall; feature width after {info['width']}", flush=True)
+    if info["width"] != 9:
+        fail(f"PE transform left width {info['width']}, want 9")
+    capture_run(PEPTIDES_PE, no_launches, TRAINABLE_PE)
+    phase_reference_pe()
+
+
+def phase_reference_pe() -> None:
+    import torch
+
+    from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.runner import _model, set_matmul_precision
+    from graph_hscn_tpu_torch.train.loss import criterion
+    from graph_hscn_tpu_torch.transform.posenc import (batched_eigh,
+                                                       compute_posenc_stats)
+    from graph_hscn_tpu_torch.utils.logger import Logger
+
+    cfg = load_with(PEPTIDES_PE, TRAINABLE_PE)
+    set_matmul_precision("highest")
+    dm = DataModule.from_config(cfg.data)
+    dm.enable_dense_slots()
+    pe = cfg.pe
+    graphs = [compute_posenc_stats(g, pe.eigen_max_freqs, pe.eigvec_norm,
+                                   pe.eigen_laplacian_norm)
+              for g in dm.split("val")[:4]]
+    batch = pack_batch(graphs, PadBudget.for_dataset(graphs, 4),
+                       slot_nodes=dm.slot_nodes)
+    model = _model(cfg, dm, torch.device("cpu"), None, Logger()).eval()
+    outs = {}
+    for dev, m in (("cpu", model), ("cuda", copy.deepcopy(model).cuda())):
+        b = batch.to(dev)
+        enc = m.encoder(b)
+        logits = m(b)
+        loss, _ = criterion(cfg.training.loss_fn, logits, b.y, b.graph_mask)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        outs[dev] = [enc.detach(), logits.detach()] + list(grads)
+    worst = 0.0
+    for ref, got in zip(outs["cpu"], outs["cuda"]):
+        err = float((got.cpu() - ref).abs().max())
+        tol = 1e-4 * max(float(ref.abs().max()), 1e-3)
+        if not got.isfinite().all() or err > tol:
+            fail(f"EncodedModel card vs CPU: max |err| {err:.3e} > {tol:.3e}")
+        worst = max(worst, err / max(float(ref.abs().max()), 1e-3))
+    print(f"[reference] EncodedModel (SignNet + GCN), 4-graph peptides batch "
+          f"(N={batch.num_nodes_padded}): SignNet output, logits and "
+          f"{len(outs['cpu']) - 2} gradients agree with the CPU, worst "
+          f"relative error {worst:.2e}", flush=True)
+
+    n_max = max(g.num_nodes for g in graphs)
+    adj = np.zeros((4, n_max, n_max))
+    mask = np.zeros((4, n_max), bool)
+    for i, g in enumerate(graphs):
+        np.add.at(adj[i], (g.edge_index[1], g.edge_index[0]), 1.0)
+        mask[i, :g.num_nodes] = True
+    hosts = [compute_posenc_stats(g, max_freqs=g.num_nodes) for g in graphs]
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evals, evects = batched_eigh(torch.from_numpy(adj).to("cuda", dtype),
+                                     torch.from_numpy(mask).cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        val_err, proj_err, ks = eigen_errors(evals.cpu().numpy(),
+                                             evects.cpu().numpy(), hosts)
+        judged = dtype == torch.float64
+        print(f"[pe] batched_eigh on the card ({dtype}, 4 graphs, n_max "
+              f"{n_max}) in {ms:.2f} ms wall with its first call: "
+              f"eigenvalues within {val_err:.2e} of the host stats, "
+              f"projectors (k, gap) {ks} within {proj_err:.2e}"
+              + (" (limits 1e-5 and 1e-4)" if judged else " (reported)"),
+              flush=True)
+        if judged and not (val_err <= 1e-5 and proj_err <= 1e-4):
+            fail("batched_eigh on the card disagrees with the host stats")
+
+
+def eigen_errors(evals, evects, hosts) -> tuple:
+    """batched_eigh's output for each graph against its host stats (all n
+    pairs): the largest eigenvalue error, and the largest error of the
+    projector onto the k smallest eigenvectors, k <= 6 after the widest
+    spectral gap there; with each graph's (k, gap)."""
+    val_err = proj_err = 0.0
+    ks = []
+    for i, host in enumerate(hosts):
+        n = host.num_nodes
+        # Padding adds eigenvalue-1 pairs with no support on real nodes.
+        real = np.sort(np.argsort(-np.abs(evects[i, :n]).sum(0))[:n])
+        lam, vec = evals[i][real], evects[i, :n][:, real]
+        val_err = max(val_err, float(np.abs(lam - host.eigvals[0]).max()))
+        k = 1 + int(np.argmax(np.diff(lam[:7])))
+        ks.append((k, round(float(lam[k] - lam[k - 1]), 6)))
+        p = vec[:, :k].astype(np.float64)
+        q = host.eigvecs[:, :k].astype(np.float64)
+        proj_err = max(proj_err, float(np.abs(p @ p.T - q @ q.T).max()))
+    return val_err, proj_err, ks
+
+
 def main() -> int:
     if not (REPO / "graph_hscn_tpu_torch" / "csrc").is_dir():
         fail(f"{REPO} holds no graph_hscn_tpu_torch package: run the script "
@@ -2323,6 +2785,24 @@ def main() -> int:
     phase_reference(VOC_GATED)
     phase_reference(GIN, GIN_SPARSE)
     phase_reference_hscn()
+    # Checkpoints, resume, eval-only mode and PE; the resumed and eval
+    # runs' launches count with the main path's.
+    phase_resume(PEPTIDES, no_launches, "peptides")
+    voc, voc_fit, voc_cfg = phase_resume(CONFIG, voc_gcn_launches, "voc")
+    phase_resume(GPS_STRUCT, no_launches, "gps_struct", check_lr=True)
+    fused_dir = {"training.checkpoint_dir": str(SCRATCH / "fused")}
+    shutil.rmtree(SCRATCH / "fused", ignore_errors=True)
+    fused_fit, fused_res = train_run(PEPTIDES_FUSED, fused_launches,
+                                     "eval", fused_dir)[:2]
+    evals = (phase_eval(load_with(PEPTIDES_FUSED, fused_dir),
+                        fused_res.best_val_loss, fused_launches),
+             phase_eval(voc_cfg, voc_fit.best_val_loss, voc_gcn_launches))
+    phase_predict(PEPTIDES_FUSED, SCRATCH / "fused")
+    phase_cluster_routes(PEPTIDES_HSCN)
+    phase_pe()
+    for counts in (voc, fused_fit, *evals):
+        for kernel, n in counts.items():
+            launches[kernel] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"[time] chip_smoke.py: {time.perf_counter() - started:.1f} s wall "

@@ -12,14 +12,14 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
 from graph_hscn_tpu_torch.data import synthetic
 from graph_hscn_tpu_torch.data.batching import (GraphData, PadBudget,
                                                 bucketed_budgets,
-                                                iter_batches)
+                                                iter_batches, pack_batch)
 from graph_hscn_tpu_torch.data.structures import GraphBatch
 
 _SYNTH = {
@@ -118,6 +118,18 @@ class DataModule:
         if self.budgets is None or self.slot_nodes is not None:
             return (self.budget,)
         return self.budgets
+
+    def example_batch(self) -> GraphBatch:
+        """The first ``batch_size`` training graphs, packed as a batch."""
+        gs = self.split("train")[: self.batch_size]
+        return pack_batch(gs, self.budget, slot_nodes=self.slot_nodes,
+                          with_spmm_plan=self.with_spmm_plan)
+
+    def apply_transform(self, fn: Callable[[GraphData], GraphData]
+                        ) -> None:
+        """A per-graph transform in place: the analog of the reference's
+        pre_transform_in_memory (transform/pre_transform.py:7-25)."""
+        self.graphs = [fn(g) for g in self.graphs]
 
     def enable_dense_slots(self, multiple: int = 8,
                            max_slot: int = 512) -> bool:

@@ -11,6 +11,11 @@ counterpart of ``graph_hscn_tpu/hscn_pipeline.py``:
 Two routes, as the JAX runner picks them: the host loop ``fit`` over
 batches packed on the host (sparse with a CSR plan, or slotted), or the
 device-resident dataset, shared by clustering and the HSCN fit.
+
+With a ``Checkpointer`` the HSCN fit saves and resumes as any fit does;
+its snapshots hold the HSCN's weights only.  The clusters are not in
+them: a resumed run clusters again first, which is deterministic given
+``training.seed``.
 """
 
 from __future__ import annotations
@@ -47,18 +52,16 @@ def _models(cfg: ExperimentConfig, dm: DataModule, max_nodes: int, device,
 def run_hscn_pipeline(cfg: ExperimentConfig, dm: DataModule, logger,
                       device: torch.device, compute_dtype=None,
                       use_device_dataset: bool = False,
-                      step_timing: bool = False) -> FitResult:
+                      step_timing: bool = False,
+                      checkpointer=None) -> FitResult:
     """Cluster, then train the HSCN on ``device``; the result's
     ``cluster_losses`` are the clustering epochs' mean losses."""
     if use_device_dataset:
         return run_hscn_pipeline_device(cfg, dm, logger, device,
-                                        compute_dtype, step_timing)
-    scn, model = _models(cfg, dm, _round8(dm.max_nodes_per_graph()), device,
-                         compute_dtype)
-    clusters, cluster_losses = train_clustering(
-        logger, dm, scn, cfg.hscn, cfg.optim, seed=cfg.training.seed,
-        device=device)
-    dm.graphs = [g.replace(cluster=c) for g, c in zip(dm.graphs, clusters)]
+                                        compute_dtype, step_timing,
+                                        checkpointer)
+    model, cluster_losses = cluster_on_host(cfg, dm, logger, device,
+                                            compute_dtype)
     result = fit(
         model,
         # A fresh batch composition every epoch, seed + epoch as in the
@@ -68,14 +71,29 @@ def run_hscn_pipeline(cfg: ExperimentConfig, dm: DataModule, logger,
         cfg.optim, cfg.training, logger, device,
         node_level=dm.task_level == "node",
         compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-        step_timing=step_timing)
+        step_timing=step_timing, checkpointer=checkpointer)
     result.cluster_losses = cluster_losses
     return result
 
 
+def cluster_on_host(cfg: ExperimentConfig, dm: DataModule, logger,
+                    device: torch.device, compute_dtype=None) -> tuple:
+    """Stages 1 and 2 on host batches: cluster, and write each graph's
+    cluster ids into ``dm.graphs``.  Returns (the HSCN to train, untrained,
+    the clustering epochs' mean losses)."""
+    scn, model = _models(cfg, dm, _round8(dm.max_nodes_per_graph()), device,
+                         compute_dtype)
+    clusters, cluster_losses = train_clustering(
+        logger, dm, scn, cfg.hscn, cfg.optim, seed=cfg.training.seed,
+        device=device)
+    dm.graphs = [g.replace(cluster=c) for g, c in zip(dm.graphs, clusters)]
+    return model, cluster_losses
+
+
 def run_hscn_pipeline_device(cfg: ExperimentConfig, dm: DataModule, logger,
                              device: torch.device, compute_dtype=None,
-                             step_timing: bool = False) -> FitResult:
+                             step_timing: bool = False,
+                             checkpointer=None) -> FitResult:
     """The device-resident route: one dataset on ``device`` (train, val,
     test in that order) for the clustering pre-train, the assignments
     written back into it, and the HSCN fit.  On the card each stage
@@ -98,7 +116,7 @@ def run_hscn_pipeline_device(cfg: ExperimentConfig, dm: DataModule, logger,
         model, ds, split_ids, dm.batch_size, cfg.optim, cfg.training,
         logger, device, node_level=dm.task_level == "node",
         compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-        step_timing=step_timing)
+        step_timing=step_timing, checkpointer=checkpointer)
     result.cluster_losses = cluster_losses
     return result
 

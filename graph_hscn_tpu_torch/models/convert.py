@@ -12,7 +12,10 @@ keeps numbered ``Dense_k`` and ``GatedGCNConv_i`` modules, which
 :func:`gatedgcn_params_from_jax` names; a flax ``SCN`` and ``HSCN`` keep
 theirs numbered by class in the order of creation, which
 :func:`scn_params_from_jax` and :func:`hscn_params_from_jax` follow; a
-flax ``GPSModel`` likewise (:func:`gps_params_from_jax`).  With
+flax ``GPSModel`` likewise (:func:`gps_params_from_jax`), and a flax
+``SignNetNodeEncoder`` its ``_GINLayer_i`` and ``Dense_j``
+(:func:`signnet_params_from_jax`; an ``EncodedModel`` its ``encoder`` and
+``core``, :func:`encoded_params_from_jax`).  With
 the weights carried across, both packages compute the same function, which
 is how the tests hold one against the other.
 """
@@ -310,4 +313,51 @@ def hscn_params_from_jax(params) -> dict[str, torch.Tensor]:
             state.update(_dense(("pool_dense.", "head.")[i], leaves))
         else:
             raise ValueError(f"unexpected flax module {name!r} in an HSCN")
+    return state
+
+
+
+def signnet_params_from_jax(params, rho_layers: int,
+                            expand_x: bool = True) -> dict[str, torch.Tensor]:
+    """flax SignNetNodeEncoder params -> the port encoder's
+    ``state_dict``: ``_GINLayer_i/Dense_j`` is ``phi.i.layers.j``; the
+    encoder's own ``Dense_j``, numbered in the order they are made, are
+    rho's ``rho_layers`` layers (its hidden ones, then the PE layer) and,
+    with ``expand_x``, then ``expand``."""
+    params = params.get("params", params)
+    want = rho_layers + int(expand_x)
+    state = {}
+    for name, leaves in params.items():
+        if (m := re.fullmatch(r"_GINLayer_(\d+)", name)) is not None:
+            for sub, dense in leaves.items():
+                j = re.fullmatch(r"Dense_(\d+)", sub)
+                if j is None:
+                    raise ValueError(f"unexpected flax module {name}/{sub}")
+                state.update(_dense(
+                    f"phi.{m.group(1)}.layers.{j.group(1)}.", dense))
+        elif (m := re.fullmatch(r"Dense_(\d+)", name)) is not None:
+            j = int(m.group(1))
+            if j >= want:
+                raise ValueError(f"{name}: the encoder has {want} Dense "
+                                 "layers of its own")
+            state.update(_dense("expand." if j == rho_layers
+                                else f"rho.{j}.", leaves))
+        else:
+            raise ValueError(f"unexpected flax module {name!r} in a "
+                             "SignNetNodeEncoder")
+    return state
+
+
+def encoded_params_from_jax(params, core_from_jax, rho_layers: int,
+                            expand_x: bool = True
+                            ) -> dict[str, torch.Tensor]:
+    """flax EncodedModel params (``encoder``, ``core``) -> the port
+    EncodedModel's ``state_dict``: ``encoder.`` + the SignNet's names
+    (:func:`signnet_params_from_jax`), ``core.`` + ``core_from_jax(the core
+    params)`` (e.g. :func:`mpnn_params_from_jax`)."""
+    params = params.get("params", params)
+    state = {f"encoder.{k}": v for k, v in signnet_params_from_jax(
+        params["encoder"], rho_layers, expand_x).items()}
+    state.update({f"core.{k}": v
+                  for k, v in core_from_jax(params["core"]).items()})
     return state

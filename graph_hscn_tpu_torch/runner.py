@@ -11,8 +11,13 @@ run_train, main.py:85-120), its single-device paths:
         (hscn_pipeline.py), on host batches or the device-resident
         dataset.
 
-Execution paths are routed as in the JAX package (runner.py:49-61, :71-118,
-:120-138 and :212-238); the paths of later slices raise
+With ``pe`` set, the eigen stats (and the frozen SignNet transform) come
+first, or the trainable SignNet wraps the model; with
+``training.checkpoint_dir`` every fit saves and resumes; :func:`run_eval`
+is the eval-only mode of ``main.py --eval``.
+
+Execution paths are routed as in the JAX package (runner.py:49-61, :63-67,
+:71-118, :120-145 and :212-238); the paths of later slices raise
 ``NotImplementedError`` naming their ROADMAP item, so no config falls
 through to a path it did not ask for.
 
@@ -28,12 +33,17 @@ import torch
 from graph_hscn_tpu_torch.config import defaults as D
 from graph_hscn_tpu_torch.config.config import ExperimentConfig
 from graph_hscn_tpu_torch.data.pipeline import DataModule
-from graph_hscn_tpu_torch.hscn_pipeline import run_hscn_pipeline
+from graph_hscn_tpu_torch.hscn_pipeline import (cluster_on_host,
+                                                 run_hscn_pipeline)
+from graph_hscn_tpu_torch.models.encoded import wrap_with_signnet
 from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
 from graph_hscn_tpu_torch.models.layers import resolve_dtype
 from graph_hscn_tpu_torch.models.mpnn import build_mpnn
 from graph_hscn_tpu_torch.ops import spmm as spmm_mod
-from graph_hscn_tpu_torch.train.loop import FitResult, fit, fit_device
+from graph_hscn_tpu_torch.train.checkpoint import Checkpointer
+from graph_hscn_tpu_torch.train.loop import (FitResult, evaluate_checkpoint,
+                                             fit, fit_device)
+from graph_hscn_tpu_torch.transform.posenc import attach_posenc
 from graph_hscn_tpu_torch.utils.logger import Logger
 
 
@@ -55,29 +65,56 @@ def set_matmul_precision(precision: str) -> None:
     torch.set_float32_matmul_precision("highest" if not tf32 else "high")
 
 
-def run_experiment(cfg: ExperimentConfig, device=None, log_file=None,
-                   step_timing: bool = False) -> FitResult:
-    device = resolve_device(device)
-    set_matmul_precision(cfg.runtime.matmul_precision)
-    compute_dtype = resolve_dtype(cfg.runtime.compute_dtype)
-    if cfg.runtime.spmm_backend in ("xla", "pallas"):
-        spmm_mod.set_backend(cfg.runtime.spmm_backend)
-    if cfg.runtime.debug_nans:
+def _refuse_later_slices(cfg: ExperimentConfig) -> None:
+    """The runtime keys whose paths are not ported raise, naming their
+    ROADMAP item, so that no config trains as if it had not set them."""
+    rt = cfg.runtime
+    if rt.debug_nans:
         raise NotImplementedError(
             "runtime.debug_nans (utils/profiling.py): ROADMAP queue A, "
             "item 12")
-    if cfg.training.checkpoint_dir:
+    if rt.profile_dir:
         raise NotImplementedError(
-            "training.checkpoint_dir (train/checkpoint.py): ROADMAP queue A, "
-            "item 5")
-    logger = Logger(log_file=log_file, metric_name=cfg.training.metric)
+            "runtime.profile_dir (utils/profiling.py:trace): ROADMAP queue "
+            "A, item 12")
+    if rt.multihost == "on":
+        raise NotImplementedError(
+            "runtime.multihost: on (utils/profiling.py:"
+            "maybe_init_distributed): ROADMAP queue A, item 11")
+
+
+def _setup_run(cfg: ExperimentConfig, device) -> tuple:
+    """The process-wide settings of a run: the device (checked), the
+    matmul precision and the spmm backend.  Returns (device, compute
+    dtype)."""
+    device = resolve_device(device)
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    if cfg.runtime.spmm_backend in ("xla", "pallas"):
+        spmm_mod.set_backend(cfg.runtime.spmm_backend)
+    return device, resolve_dtype(cfg.runtime.compute_dtype)
+
+
+def _checkpointer(cfg: ExperimentConfig) -> Checkpointer | None:
+    return (Checkpointer(cfg.training.checkpoint_dir)
+            if cfg.training.checkpoint_dir else None)
+
+
+def run_experiment(cfg: ExperimentConfig, device=None, log_file=None,
+                   step_timing: bool = False) -> FitResult:
+    _refuse_later_slices(cfg)
+    device, compute_dtype = _setup_run(cfg, device)
+    logger = Logger(log_file=log_file, metric_name=cfg.training.metric,
+                    use_wandb=cfg.training.use_wandb)
     try:
         return _run(cfg, device, compute_dtype, logger, step_timing)
     finally:
         logger.finish()
 
 
-def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
+def _data(cfg: ExperimentConfig, device, logger) -> DataModule:
+    """The dataset, its execution path (slotted dense blocks for
+    molecular-scale graphs, CSR plans for the sparse kernel path, as the
+    JAX runner picks them) and, with ``pe``, its positional encodings."""
     dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
     logger.info(f"Dataset {cfg.data.dataset_name}: {len(dm.graphs)} graphs, "
                 f"budget nodes={dm.budget.num_nodes} "
@@ -85,9 +122,6 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
     if dm.budgets is not None and len(dm.budgets) > 1:
         logger.info("Shape buckets: " + ", ".join(
             f"(n={b.num_nodes}, e={b.num_edges})" for b in dm.budgets))
-
-    # Execution-path selection, as in the JAX runner: slotted dense blocks
-    # for molecular-scale graphs, CSR plans for the sparse kernel path.
     if cfg.runtime.dense_path in ("auto", "dense"):
         enabled = dm.enable_dense_slots(max_slot=D.DENSE_PATH_MAX_NODES)
         if enabled:
@@ -98,11 +132,55 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
     if cfg.runtime.spmm_backend in ("auto", "pallas") and not dm.slot_nodes:
         dm.with_spmm_plan = (device.type == "cuda"
                              or cfg.runtime.spmm_backend == "pallas")
-
     if cfg.pe is not None:
-        raise NotImplementedError(
-            "positional encodings (transform/posenc.py): ROADMAP queue A, "
-            "item 9")
+        attach_posenc(dm, cfg.pe, logger,
+                      frozen_random=cfg.compat.frozen_random_signnet,
+                      seed=cfg.training.seed, device=device)
+    return dm
+
+
+def _model(cfg: ExperimentConfig, dm, device, compute_dtype, logger,
+           signnet_on_fused: bool = True) -> torch.nn.Module:
+    """The MPNN branch's model on ``device``: the fused stack or
+    ``build_mpnn``, behind a trainable SignNet when ``pe`` is set and
+    ``compat.frozen_random_signnet`` is false.  ``signnet_on_fused=False``
+    leaves the fused stack unwrapped, as the JAX ``run_eval`` does
+    (runner.py:388-406).  Initial weights from a generator seeded with
+    ``training.seed`` on the host, the core's first."""
+    init_gen = torch.Generator().manual_seed(cfg.training.seed)
+    readout = "none" if dm.task_level == "node" else "mean"
+    fused = _use_fused_stack(cfg, dm, device)
+    wrap = (cfg.pe is not None and not cfg.compat.frozen_random_signnet
+            and (signnet_on_fused or not fused))
+    # The core reads the encoder's output, dim_emb wide.
+    in_features = cfg.pe.dim_emb if wrap else dm.num_features
+    if fused:
+        logger.info("Fused GCN stack on"
+                    + (f" ({cfg.runtime.compute_dtype} compute, f32 "
+                       "accumulation/logits)."
+                       if compute_dtype is not None else "."))
+        model = FusedDenseGCN(
+            num_features=in_features,
+            hidden_channels=cfg.mpnn.hidden_channels,
+            num_classes=dm.num_classes, num_layers=cfg.mpnn.num_layers,
+            dropout=cfg.mpnn.dropout, readout=readout, dtype=compute_dtype,
+            generator=init_gen)
+    else:
+        model = build_mpnn(cfg.mpnn, in_features, dm.num_classes,
+                           compat=cfg.compat.double_relu, readout=readout,
+                           dtype=compute_dtype, generator=init_gen,
+                           num_edge_features=dm.num_edge_features)
+        if compute_dtype is not None:
+            logger.info(f"Mixed precision: {cfg.runtime.compute_dtype} "
+                        "compute, f32 params/logits.")
+    if wrap:
+        model = wrap_with_signnet(model, cfg.pe, dm.num_features,
+                                  generator=init_gen)
+    return model.to(device)
+
+
+def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
+    dm = _data(cfg, device, logger)
     node_level = dm.task_level == "node"
     shape = _resolve_mesh_shape(cfg.mesh.shape)
     mesh_size = int(np.prod(shape))
@@ -114,30 +192,8 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
         return run_hscn_pipeline(
             cfg, dm, logger, device, compute_dtype,
             use_device_dataset=_use_device_dataset(cfg, dm),
-            step_timing=step_timing)
-    # Initial weights from a seeded generator on the host, then moved.
-    init_gen = torch.Generator().manual_seed(cfg.training.seed)
-    readout = "none" if node_level else "mean"
-    if _use_fused_stack(cfg, dm, device):
-        logger.info("Fused GCN stack on"
-                    + (f" ({cfg.runtime.compute_dtype} compute, f32 "
-                       "accumulation/logits)."
-                       if compute_dtype is not None else "."))
-        model = FusedDenseGCN(
-            num_features=dm.num_features,
-            hidden_channels=cfg.mpnn.hidden_channels,
-            num_classes=dm.num_classes, num_layers=cfg.mpnn.num_layers,
-            dropout=cfg.mpnn.dropout, readout=readout, dtype=compute_dtype,
-            generator=init_gen)
-    else:
-        model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                           compat=cfg.compat.double_relu, readout=readout,
-                           dtype=compute_dtype, generator=init_gen,
-                           num_edge_features=dm.num_edge_features)
-        if compute_dtype is not None:
-            logger.info(f"Mixed precision: {cfg.runtime.compute_dtype} "
-                        "compute, f32 params/logits.")
-    model = model.to(device)
+            step_timing=step_timing, checkpointer=_checkpointer(cfg))
+    model = _model(cfg, dm, device, compute_dtype, logger)
     if mesh_size > 1 or cfg.mesh.edge_partition:
         raise NotImplementedError("mesh.shape > 1 / mesh.edge_partition: "
                                   "ROADMAP queue A, item 11")
@@ -149,7 +205,8 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
             training_cfg=cfg.training, logger=logger, device=device,
             node_level=node_level,
             compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-            slot=dm.slot_nodes, step_timing=step_timing)
+            slot=dm.slot_nodes, step_timing=step_timing,
+            checkpointer=_checkpointer(cfg))
     return fit(
         model,
         # Fresh batch composition every epoch (reference DataLoader
@@ -159,7 +216,62 @@ def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
         cfg.optim, cfg.training, logger, device,
         node_level=node_level,
         compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-        step_timing=step_timing)
+        step_timing=step_timing, checkpointer=_checkpointer(cfg))
+
+
+def run_eval(cfg: ExperimentConfig, which: str = "best", device=None,
+             log_file=None, predict_out: str | None = None) -> dict:
+    """Eval-only mode (the JAX ``run_eval``): restore snapshot ``which``
+    ("best" or "latest") from ``training.checkpoint_dir`` and score the val
+    and test splits on host batches.  Returns {split: {"loss", metric}}.
+
+    For the HSCN pipeline the clusters are not in the snapshot: clustering
+    is deterministic given ``training.seed``, so the host clustering
+    (``train_clustering``) runs again before the restore, whichever route
+    clustered in training, as in the JAX package.
+
+    ``predict_out``: the path of an ``.npz`` to receive each split's
+    scores and targets over its real rows (``{split}_scores``,
+    ``{split}_targets``).
+    """
+    if not cfg.training.checkpoint_dir:
+        raise ValueError("eval mode needs training.checkpoint_dir")
+    if cfg.mesh.edge_partition:
+        raise NotImplementedError(
+            "eval of an edge-partitioned run (parallel/): ROADMAP queue A, "
+            "item 11")
+    device, compute_dtype = _setup_run(cfg, device)
+    logger = Logger(log_file=log_file, metric_name=cfg.training.metric)
+    try:
+        dm = _data(cfg, device, logger)
+        if cfg.hscn is not None:
+            model, _ = cluster_on_host(cfg, dm, logger, device,
+                                       compute_dtype)
+        else:
+            model = _model(cfg, dm, device, compute_dtype, logger,
+                           signnet_on_fused=False)
+        sink = {} if predict_out else None
+        results, meta = evaluate_checkpoint(
+            model, {"val": dm.eval_batches("val"),
+                    "test": dm.eval_batches("test")},
+            cfg.training, Checkpointer(cfg.training.checkpoint_dir), device,
+            which=which, node_level=dm.task_level == "node",
+            compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+            predictions_sink=sink)
+        for split, m in results.items():
+            logger.info(f"[eval:{which}] {split}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in m.items()))
+        if meta:
+            logger.info(f"[eval:{which}] snapshot meta: {meta}")
+        if sink is not None:
+            arrays = {f"{split}_{k}": v for split, d in sink.items()
+                      for k, v in d.items()}
+            np.savez(predict_out, **arrays)
+            logger.info(f"[predict] wrote {', '.join(sorted(arrays))} "
+                        f"to {predict_out}")
+        return results
+    finally:
+        logger.finish()
 
 
 def _resolve_mesh_shape(shape) -> list[int]:

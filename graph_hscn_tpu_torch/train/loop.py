@@ -9,7 +9,10 @@ the host path ``fit`` and the device-resident path ``fit_device``.
   via ``loss.item()``, train.py:85);
 - eval cadence, early stopping (patience counted in eval periods, quirk #13
   preserved intentionally: it matches the reference's semantics), min_delta
-  on val loss — all identical to reference train.py:164-214.
+  on val loss — all identical to reference train.py:164-214;
+- with a ``Checkpointer`` (train/checkpoint.py) a fit resumes from its
+  latest snapshot and saves best and latest ones, as the JAX fit does;
+  :func:`evaluate_checkpoint` scores a snapshot without training.
 """
 
 from __future__ import annotations
@@ -56,17 +59,75 @@ class FitResult:
     replays: dict = dataclasses.field(default_factory=dict)
 
 
+def _maybe_resume(model, opt, generator, checkpointer, device,
+                  logger) -> tuple[int, float]:
+    """Resume from the latest snapshot if there is one (the JAX
+    ``_maybe_resume``): the model, the optimizer wrapper and the dropout
+    generator take its state.  Returns (the epoch to start at, the best
+    val loss so far), the latter from the best snapshot's sidecar so that a
+    resumed run cannot clobber a better 'best' with a worse one.
+
+    It runs after ``_setup`` and before the fit's first step, so before the
+    device route captures its steps: the optimizer's state tensors and the
+    generator's state are in place when the graphs bind them."""
+    if checkpointer is None or not checkpointer.has("latest"):
+        return 0, float("inf")
+    state, meta = checkpointer.restore("latest", device)
+    model.load_state_dict(state["model"])
+    opt.load_state_dict(state["optimizer"])
+    generator.set_state(state["generator"].cpu())
+    start_epoch = int(meta.get("epoch", -1)) + 1
+    best_loss = float("inf")
+    if checkpointer.has("best"):
+        best_loss = float(checkpointer.meta("best").get("val_loss",
+                                                        float("inf")))
+    logger.info(f"Resumed from latest checkpoint (epoch {start_epoch}, "
+                f"{int(state['step'])} train steps, best val loss "
+                f"{best_loss:.4f}).")
+    return start_epoch, best_loss
+
+
+def snapshot_state(model, opt, generator) -> dict:
+    """What a checkpoint holds: the model's ``state_dict``, the optimizer
+    wrapper's, the dropout generator's state and the count of train steps
+    (mini-batches) taken."""
+    return {"model": model.state_dict(), "optimizer": opt.state_dict(),
+            "generator": generator.get_state(), "step": opt.minibatches}
+
+
 def run_fit_loop(training_cfg, logger, train_epoch, evaluate,
-                 start_epoch: int = 0,
+                 checkpointer=None, get_state=None, start_epoch: int = 0,
                  best_loss: float = float("inf")) -> tuple:
     """The epoch loop: eval cadence (is_eval_epoch — reference
     train/utils.py:1-6), early stopping on val-loss plateau (reference
-    train.py:198-214) and the history record.
+    train.py:198-214), best/latest checkpoints and the history record.
 
     train_epoch(epoch) -> (train_loss, train_perf)
     evaluate(split)    -> (loss, perf) for split in ("val", "test")
+    get_state()        -> the snapshot a ``checkpointer`` saves.
     Returns (best_val_loss, history, stopped_early, epochs_run).
     """
+    try:
+        out = _fit_loop_body(training_cfg, logger, train_epoch, evaluate,
+                             checkpointer, get_state, start_epoch, best_loss)
+    except BaseException:
+        # Fence an in-flight write even when an epoch raises, so that no
+        # snapshot is left without its sidecar; the epoch's exception
+        # propagates, a write error beside it is secondary.
+        if checkpointer is not None:
+            try:
+                checkpointer.wait()
+            except Exception:
+                pass
+        raise
+    if checkpointer is not None:
+        checkpointer.wait()   # land the last async write
+    return out
+
+
+def _fit_loop_body(training_cfg, logger, train_epoch, evaluate,
+                   checkpointer, get_state, start_epoch: int,
+                   best_loss: float) -> tuple:
     num_improvement = 0
     history = []
     stopped = False
@@ -90,6 +151,9 @@ def run_fit_loop(training_cfg, logger, train_epoch, evaluate,
                     if ev_loss < best_loss - training_cfg.min_delta:
                         best_loss = ev_loss
                         num_improvement = 0
+                        if checkpointer is not None:
+                            checkpointer.save_best(get_state(), epoch,
+                                                   ev_loss)
                     else:
                         num_improvement += 1
                     if (num_improvement >= training_cfg.patience
@@ -101,6 +165,10 @@ def run_fit_loop(training_cfg, logger, train_epoch, evaluate,
                         stopped = True
             if stopped:
                 break
+            if (checkpointer is not None and training_cfg.checkpoint_every
+                    and (epoch // training_cfg.eval_period)
+                    % training_cfg.checkpoint_every == 0):
+                checkpointer.save_latest(get_state(), epoch)
     return best_loss, history, stopped, epochs_run
 
 
@@ -145,7 +213,7 @@ def fit(model: torch.nn.Module,
         val_batches: list[GraphBatch], test_batches: list[GraphBatch],
         optim_cfg, training_cfg, logger, device: torch.device | str,
         node_level: bool = False, compat_sigmoid_score: bool = False,
-        step_timing: bool = False) -> FitResult:
+        step_timing: bool = False, checkpointer=None) -> FitResult:
     """Full training run with eval cadence + early stopping (mirrors
     reference train.py:147-214).  ``model`` lives on ``device``; each numpy
     batch is moved there as it is used.
@@ -153,7 +221,9 @@ def fit(model: torch.nn.Module,
     ``train_batches_fn(epoch)`` must yield the epoch's training batches, so
     the packer can reshuffle per epoch (the reference's
     DataLoader(shuffle=True), loader.py:48-60).  ``step_timing`` ends every
-    train step in a device sync and records its wall time.
+    train step in a device sync and records its wall time.  With a
+    ``checkpointer`` the fit resumes from its latest snapshot, if any, and
+    saves best and latest snapshots (:func:`run_fit_loop`).
     """
     device = torch.device(device)
     total_steps = None
@@ -164,6 +234,8 @@ def fit(model: torch.nn.Module,
         total_steps = training_cfg.epochs * max(n_batches, 1)
     opt, dropout_gen, runner = _setup(model, optim_cfg, training_cfg, device,
                                       step_timing, total_steps)
+    start_epoch, best_loss = _maybe_resume(model, opt, dropout_gen,
+                                           checkpointer, device, logger)
     train_step, eval_step = make_train_step(
         model, opt, training_cfg.loss_fn, node_level=node_level,
         compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen)
@@ -176,7 +248,9 @@ def fit(model: torch.nn.Module,
         training_cfg, logger,
         lambda epoch: runner.run(train_batches_fn(epoch), move, train_step,
                                  "train"),
-        lambda split: runner.run(eval_sets[split], move, eval_step, "eval"))
+        lambda split: runner.run(eval_sets[split], move, eval_step, "eval"),
+        checkpointer, lambda: snapshot_state(model, opt, dropout_gen),
+        start_epoch, best_loss)
     return runner.result(model, best, history, stopped, epochs_run)
 
 
@@ -263,7 +337,7 @@ def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
                batch_size: int, optim_cfg, training_cfg, logger,
                device: torch.device | str, node_level: bool = False,
                compat_sigmoid_score: bool = False, slot: int | None = None,
-               step_timing: bool = False) -> FitResult:
+               step_timing: bool = False, checkpointer=None) -> FitResult:
     """Device-resident training (the JAX ``fit_device``): the whole dataset
     lives on ``device``, batches are assembled there from index rows
     (train/device_data.py), and an epoch's host traffic is its [NB, B]
@@ -282,7 +356,8 @@ def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
     return fit_on_device_dataset(
         model, ds, split_ids, batch_size, optim_cfg, training_cfg, logger,
         device, node_level=node_level,
-        compat_sigmoid_score=compat_sigmoid_score, step_timing=step_timing)
+        compat_sigmoid_score=compat_sigmoid_score, step_timing=step_timing,
+        checkpointer=checkpointer)
 
 
 def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
@@ -291,7 +366,8 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
                           node_level: bool = False,
                           compat_sigmoid_score: bool = False,
                           step_timing: bool = False,
-                          capture: bool | None = None) -> FitResult:
+                          capture: bool | None = None,
+                          checkpointer=None) -> FitResult:
     """:func:`fit_device` on a prebuilt DeviceDataset.
 
     Each epoch runs through :func:`device_data.make_epoch_fn`, as the JAX
@@ -302,7 +378,9 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     captures on a CUDA device; False runs the same steps (the same
     capturable optimizer) eagerly row by row, the yardstick that the card
     tests and ``chip_smoke.py`` hold the captured fit against (no config
-    sets it).  A capture or replay that fails raises.
+    sets it).  A capture or replay that fails raises.  ``checkpointer``
+    as in :func:`fit`; the restore comes before the first row, so before
+    the steps are captured.
     """
     device = torch.device(device)
     capture = resolve_capture(capture, device)
@@ -313,6 +391,8 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     opt, dropout_gen, runner = _setup(model, optim_cfg, training_cfg, device,
                                       step_timing, total_steps,
                                       capturable=device.type == "cuda")
+    start_epoch, best_loss = _maybe_resume(model, opt, dropout_gen,
+                                           checkpointer, device, logger)
 
     def split_perm(name, seed, shuffle) -> np.ndarray:
         p = epoch_permutation(counts[name], batch_size, seed, shuffle)
@@ -332,5 +412,46 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
         lambda epoch: runner.run_rows(
             train_epoch, split_perm("train", training_cfg.seed + epoch, True),
             "train"),
-        lambda split: runner.run_rows(eval_epoch, eval_perms[split], "eval"))
+        lambda split: runner.run_rows(eval_epoch, eval_perms[split], "eval"),
+        checkpointer, lambda: snapshot_state(model, opt, dropout_gen),
+        start_epoch, best_loss)
     return runner.result(model, best, history, stopped, epochs_run)
+
+
+def evaluate_checkpoint(model: torch.nn.Module, batches_by_split: dict,
+                        training_cfg, checkpointer, device,
+                        which: str = "best", node_level: bool = False,
+                        compat_sigmoid_score: bool = False,
+                        predictions_sink: dict | None = None
+                        ) -> tuple[dict, dict]:
+    """Restore snapshot ``which`` into ``model`` (on ``device``) and score
+    it on each split's host batches: eval-only mode, no training (the JAX
+    ``evaluate_checkpoint``).  Returns ({split: {"loss", metric}}, the
+    snapshot's metadata).  With ``predictions_sink`` (a dict) it also
+    collects each split's scores and targets over the real rows, as numpy:
+    the export behind ``main.py --eval --predict``.  The model alone is
+    restored: eval needs no optimizer state."""
+    device = torch.device(device)
+    if not checkpointer.has(which):
+        raise FileNotFoundError(
+            f"no '{which}' snapshot in {checkpointer.dir}")
+    state, meta = checkpointer.restore(which, device)
+    model.load_state_dict(state["model"])
+    _, eval_step = make_train_step(
+        model, None, training_cfg.loss_fn, node_level=node_level,
+        compat_sigmoid_score=compat_sigmoid_score)
+    runner = _StepRunner(METRICS[training_cfg.metric], device, False)
+    results = {}
+    for split, batches in batches_by_split.items():
+        losses, scores, trues, masks = zip(*(eval_step(b.to(device))
+                                             for b in batches))
+        scores, trues, masks = (torch.cat(t) for t in (scores, trues, masks))
+        loss, perf = runner.collect(torch.stack(losses), scores, trues,
+                                    masks)
+        results[split] = {"loss": loss, training_cfg.metric: perf}
+        if predictions_sink is not None:
+            m = masks.reshape(-1).cpu().numpy()
+            predictions_sink[split] = {
+                name: t.reshape(-1, t.shape[-1]).cpu().numpy()[m]
+                for name, t in (("scores", scores), ("targets", trues))}
+    return results, meta

@@ -28,6 +28,7 @@ steps are captured as CUDA graphs (``train/capture.py``): Adam and AdamW
 then keep their step count on the card, and a schedule's lr is a 0-d
 tensor on the card that the step itself writes from the update count on
 the card, so a replayed step reads the lr of its own update.
+:meth:`Optimizer.state_dict` carries all of it into a checkpoint.
 :class:`RssAdagrad`, the zero fill of :meth:`Optimizer.step`, the
 accumulation and :func:`clip_grad_norm` are tensor arithmetic with no
 branch on a tensor's value, so they capture as they are; whether a step
@@ -232,6 +233,42 @@ class Optimizer:
             for acc in self.acc:
                 acc.zero_()
             self.mini.zero_()
+
+    def state_dict(self) -> dict:
+        """What JAX's ``opt_state`` holds: the inner optimizer's state
+        (capturable Adam's device ``step`` and tensor lr among it), the
+        schedule's update count, the host's mini-batch count and the
+        accumulator with its divisor."""
+        state = {"inner": self.opt.state_dict(), "updates": self.updates,
+                 "minibatches": self.minibatches}
+        if self.accumulate > 1:
+            state["acc"] = list(self.acc)
+            state["mini"] = self.mini
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` into an optimizer that has not
+        stepped.  The inner optimizer's ``load_state_dict`` installs new
+        state tensors, which a step captured before would not read; the
+        counts and the accumulator are copied into the tensors in place."""
+        if self.opt.state:
+            raise RuntimeError("restore an optimizer before its first step "
+                               "(a captured step reads its state tensors "
+                               "by address)")
+        self.opt.load_state_dict(state["inner"])
+        if not self.capturable:
+            # torch keeps ``step`` where the load put it; off the capturable
+            # path it belongs on the host.
+            for s in self.opt.state.values():
+                if torch.is_tensor(s.get("step")):
+                    s["step"] = s["step"].cpu()
+        if self.updates is not None:
+            self.updates.copy_(state["updates"])
+        self.minibatches = int(state["minibatches"])
+        if self.accumulate > 1:
+            for acc, saved in zip(self.acc, state["acc"]):
+                acc.copy_(saved)
+            self.mini.copy_(state["mini"])
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], optim_type: str,

@@ -1,11 +1,14 @@
 """Structured logger: stdout + file, epoch timing.
 
 The counterpart of ``graph_hscn_tpu/utils/logger.py`` (the reference's
-CustomLogger, logger.py:7-45) without wandb.
+CustomLogger, logger.py:7-45) without wandb: with ``use_wandb`` and no
+wandb installed it warns once and goes on, as the JAX logger does; with
+wandb installed it raises, since the port does not log to it.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import logging
 import sys
 import time
@@ -14,7 +17,7 @@ from pathlib import Path
 
 class Logger:
     def __init__(self, log_file: str | Path | None = None,
-                 metric_name: str = "metric"):
+                 metric_name: str = "metric", use_wandb: bool = False):
         self.logger = logging.getLogger(f"graph_hscn_tpu_torch.{id(self)}")
         self.logger.setLevel(logging.DEBUG)
         self.logger.propagate = False
@@ -29,6 +32,14 @@ class Logger:
             self.logger.addHandler(fh)
         self.metric_name = {"ap": "AP", "mae": "MAE", "f1": "F1"}.get(
             metric_name, metric_name)
+        if use_wandb:
+            if importlib.util.find_spec("wandb") is not None:
+                self.finish()
+                raise NotImplementedError(
+                    "training.use_wandb with wandb installed "
+                    "(utils/logger.py): ROADMAP queue A, item 12")
+            self.logger.warning("wandb unavailable (not installed); "
+                                "continuing without it.")
 
     def info(self, msg: str) -> None:
         self.logger.info(msg)

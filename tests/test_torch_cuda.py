@@ -1347,3 +1347,112 @@ def test_a_host_sync_in_the_step_makes_the_captured_fit_raise():
     with pytest.raises(RuntimeError):
         fit_captured(model, ds, split_ids, capture=True, epochs=1)
     torch.cuda.synchronize()
+
+
+# --- checkpoints and positional encodings ----------------------------------
+
+class _Interrupted(Exception):
+    pass
+
+
+def fit_checkpointed(model, ds, split_ids, ck, optim, epochs=4):
+    """fit_on_device_dataset captured, as fit_captured, with a
+    checkpointer saving the latest snapshot after every epoch."""
+    from graph_hscn_tpu_torch.config.config import OptimConfig, TrainingConfig
+    from graph_hscn_tpu_torch.train.loop import fit_on_device_dataset
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    training = TrainingConfig(model_type="gcn", loss_fn="cross_entropy",
+                              metric="ap", epochs=epochs, eval_period=1,
+                              patience=50, min_delta=0.0, seed=3,
+                              checkpoint_every=1)
+    return fit_on_device_dataset(
+        model, ds, split_ids, 4, OptimConfig(**optim), training,
+        Logger(metric_name="ap"), "cuda", checkpointer=ck)
+
+
+@pytest.mark.parametrize("fused,optim", [
+    (False, dict(optim_type="adamW", lr=0.01, weight_decay=5e-4,
+                 batch_accumulation=2, schedule="cosine", warmup_steps=2)),
+    (True, dict(optim_type="adamW", lr=0.01, weight_decay=5e-4)),
+])
+def test_captured_fit_resumed_mid_run_follows_the_uninterrupted_one(
+        fused, optim, tmp_path):
+    """A captured 4-epoch fit, dropout 0.2, killed after epoch 1's latest
+    snapshot and resumed by a fresh model, optimizer and Checkpointer: the
+    restore lands before the resumed fit captures its steps, so its replays
+    step the restored optimizer state (capturable AdamW's device step, the
+    tensor lr, the accumulator) and draw the restored dropout bits.  Epochs
+    2-3's train and val losses within 1e-6 relative of the uninterrupted
+    captured fit's, and the final weights at 1e-6*max|ref|."""
+    need_card()
+    import copy
+
+    from graph_hscn_tpu_torch.train.checkpoint import Checkpointer
+
+    class Stopping(Checkpointer):
+        def save_latest(self, state, epoch):
+            super().save_latest(state, epoch)
+            if epoch == 1:
+                raise _Interrupted
+
+    ds, model, split_ids = epoch_setup(fused)
+    full = fit_checkpointed(copy.deepcopy(model).cuda(), ds, split_ids,
+                            Checkpointer(tmp_path / "full"), optim)
+    with pytest.raises(_Interrupted):
+        fit_checkpointed(copy.deepcopy(model).cuda(), ds, split_ids,
+                         Stopping(tmp_path / "cut"), optim)
+    resumed = fit_checkpointed(copy.deepcopy(model).cuda(), ds, split_ids,
+                               Checkpointer(tmp_path / "cut"), optim)
+    assert [h["epoch"] for h in resumed.history] == [2, 3]
+    assert resumed.replays["train"] == resumed.num_train_steps - (
+        2 if optim.get("batch_accumulation", 1) > 1 else 1)
+    for got, ref in zip(resumed.history, full.history[2:]):
+        for key in ("train_loss", "validation_loss", "test_loss"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-6)
+    want = full.model.state_dict()
+    for name, p in resumed.model.state_dict().items():
+        assert_close(p, want[name], 1e-6)
+
+
+def test_encoded_model_on_the_card_matches_the_cpu():
+    """The trainable SignNet with a GCN MPNN core (EncodedModel) on a
+    4-graph peptides batch with its eigen stats, card against CPU under
+    matmul_precision highest (pinned, then restored): logits and every
+    parameter gradient within 1e-4*max|ref|."""
+    need_card()
+    import copy
+
+    from graph_hscn_tpu_torch.config.config import PEConfig
+    from graph_hscn_tpu_torch.data.synthetic import make_peptides_func
+    from graph_hscn_tpu_torch.models.encoded import wrap_with_signnet
+    from graph_hscn_tpu_torch.models.mpnn import MPNN
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.loss import criterion
+    from graph_hscn_tpu_torch.transform.posenc import compute_posenc_stats
+    graphs = [compute_posenc_stats(g) for g in
+              make_peptides_func(num_graphs=4, seed=7)]
+    batch = pack_batch(graphs, PadBudget.for_dataset(graphs, 4))
+    gen = torch.Generator().manual_seed(5)
+    model = wrap_with_signnet(
+        MPNN(conv_type="gcn", activation="relu", num_features=9,
+             hidden_channels=16, num_classes=10, num_layers=3,
+             generator=gen),
+        PEConfig(dim_in=9, dim_emb=9, dim_pe=4), 9, generator=gen)
+    model.eval()
+    outs = {}
+    prev = torch.get_float32_matmul_precision()
+    set_matmul_precision("highest")
+    try:
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            b = batch.to(dev)
+            logits = m(b)
+            loss, _ = criterion("cross_entropy", logits, b.y, b.graph_mask)
+            loss.backward()
+            outs[dev] = [logits.detach()] + [p.grad for p in m.parameters()]
+    finally:
+        set_matmul_precision("highest" if prev == "highest" else "default")
+    assert len(outs["cpu"]) == 1 + len(list(model.parameters()))
+    for ref, got in zip(outs["cpu"], outs["cuda"]):
+        assert bool(got.isfinite().all())
+        assert_close(got, ref, 1e-4)
