@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (graph_hscn_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kink-study N   # the device and build phases,
+                                           # then kink_study(N) alone
 
 Phases; any failure exits non-zero:
   1. device  - the card's name, count, and nvidia-smi's name and power limit.
@@ -53,7 +55,14 @@ Phases; any failure exits non-zero:
                - csr_spmm at the peptides GIN batch on sparse batches (the
                  first train batch with its CSR plan, the 0/1 edge mask as
                  weights): forward at F=9 (layer 0) and F=16, transpose
-                 (order) at F=16, as for the HSCN batch.
+                 (order) at F=16, as for the HSCN batch;
+               - [edge_partition] the edge-partition block (the train split
+                 of configs/GCN/voc_superpixels_GCN_edge_partition.yaml on
+                 one rank: N_b=201,432 rows, its local-edge CSR plan):
+                 csr_spmm forward and transpose at F=64 with the block's
+                 GCN weights, spmm_mh forward and transpose and sddmm_mh
+                 at H=4, C=16 and 21, float32, each against its plain
+                 version (1e-5*max|ref|), timed as above.
                Device times: CUDA events over calls queued behind a device
                sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
@@ -149,6 +158,21 @@ Phases; any failure exits non-zero:
                card against CPU (1e-4*max|ref|), and batched_eigh on the
                card against the host stats, in float64 (eigenvalues 1e-5,
                projectors 1e-4) and float32 (reported).
+     edge_partition - configs/GCN/voc_superpixels_GCN_edge_partition.yaml
+               and configs/GAT/voc_superpixels_GAT_edge_partition.yaml
+               with mesh.shape [1] (they ask for 8 devices; every other key
+               as shipped, 512 graphs, hidden 64, 4 layers), and GIN by the
+               GCN config's conv_type: run_experiment 2 epochs each on a
+               1-rank NCCL group made by the runner (N_b, E, H and the host
+               plan's seconds of each split; step ms; launches: GCN 6
+               csr_spmm a train step and 3 an eval forward, GAT 8 spmm_mh
+               + 4 sddmm_mh and 4, GIN none); a train step profiled (idle
+               share, the kernels' and NCCL's device time); the model on
+               the val split, card against CPU (logits 1e-5*max|ref|, loss
+               and gradients 1e-4*max|ref|, the CPU's gradient pass on the
+               card's ReLU and leaky-ReLU decisions: KinkPins; at most
+               1e-5 of them may differ); [resume] and [eval] of the GCN
+               one, and its predict export in a subprocess.
 A [time] line gives the script's wall time.  The last three lines are the
 {"kernels": [...]} record, nvidia-smi's line, and {"ok": true, "device":
 {...}}.
@@ -197,6 +221,14 @@ GPS_VOC = REPO / "configs" / "GPS" / "voc_superpixels_GPS.yaml"
 PEPTIDES_STRUCT_GCN = REPO / "configs" / "GCN" / "peptides_struct_GCN.yaml"
 PEPTIDES_PE = REPO / "configs" / "GCN" / "peptides_func_GCN_PE.yaml"
 TRAINABLE_PE = {"compat.frozen_random_signnet": False}
+# The edge-partition configs ask for an 8-device mesh; one card runs them
+# on a 1-rank mesh (JAX honours edge_partition there too), every other key
+# as shipped; GIN by the GCN config's conv_type.
+GCN_EP = REPO / "configs" / "GCN" / "voc_superpixels_GCN_edge_partition.yaml"
+GAT_EP = REPO / "configs" / "GAT" / "voc_superpixels_GAT_edge_partition.yaml"
+ONE_RANK = {"mesh.shape": [1]}
+GIN_EP = {"mesh.shape": [1], "mpnn.conv_type": "gin"}
+VOC_CLASSES = 21
 # Checkpoints and the predict export of [resume] and [eval]: inside the
 # checkout, in a directory git ignores.
 SCRATCH = REPO / "build" / "chip_smoke"
@@ -713,6 +745,44 @@ def check_case(case: dict) -> tuple[float, float]:
     return err, tol
 
 
+def time_case(tag: str, case: dict) -> tuple[float, dict]:
+    """A multi-head case (``gat_cases``) held against its plain version
+    (``check_case``), then timed cold (``rotating``, inputs from HBM as the
+    bound assumes) with the warm time beside: kernel, plain version and
+    library call; prints one ``tag`` line.  Returns (max |err|, {ms,
+    plain_ms, library_ms, bound_ms, bound_by})."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import multihead_plan
+
+    err, tol = check_case(case)
+    name = case["name"]
+    lib_ms, why = None, "float32 only"
+    if case["lib"] is not None:
+        fn, args, _ = case["lib"]
+        lib_ms, why = library_ms(rotating(fn, *args))
+    b_ms, b_by = bound_ms(case["nbytes"], case["ops"])
+    k_ms, k_host = time_ms(rotating(case["kern"], *case["args"]))
+    warm_ms, _ = time_ms(lambda c=case: c["kern"](*c["args"]))
+    p_ms, _ = time_ms(rotating(case["plain"], *case["plain_args"]))
+    ds = case["args"][0].dtype
+    if name == "sddmm_mh" and torch.bfloat16 in (ds, case["args"][1].dtype):
+        ds = torch.bfloat16
+    plan = multihead_plan(name, case["heads"], case["c"], ds)
+    label = f"H={case['heads']} C={case['c']}"
+    print(f"{tag} {name:8s} {case['role']:9s} {label:8s} "
+          f"{case['dtype']:15s} err {err:.2e} (tol {tol:.1e}) device, "
+          f"cold L2: kernel {k_ms * 1e3:7.2f} us ({b_ms / k_ms:.2f} of "
+          f"bound)  plain {p_ms * 1e3:8.2f} us  bound "
+          f"{b_ms * 1e3:5.2f} us ({b_by})  library "
+          + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
+             else f"n/a ({why})")
+          + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
+          f"{k_host * 1e3:6.2f} us; plan {plan_label(plan)}", flush=True)
+    return err, dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                     bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_gat_kernels():
     """spmm_mh (B6) and sddmm_mh (B7) at the VOC GAT batch shape (N=19048,
     72832 edge slots), every width and role of the step (gat_cases) and
@@ -723,7 +793,7 @@ def phase_gat_kernels():
     import torch
 
     from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (
-        gat_edge_logits, multihead_plan, sddmm_mh_plain)
+        gat_edge_logits, sddmm_mh_plain)
 
     p = gat_batch_plan()
     n, e, nnz = p.num_nodes, p.col.numel(), p.num_edges
@@ -731,36 +801,13 @@ def phase_gat_kernels():
     worst = {"spmm_mh": 0.0, "sddmm_mh": 0.0}
     records = {}
     for case in gat_cases(p):
-        err, tol = check_case(case)
+        err, rec = time_case("[gat]", case)
         name = case["name"]
         worst[name] = max(worst[name], err)
-        lib_ms, why = None, "float32 only"
-        if case["lib"] is not None:
-            fn, args, _ = case["lib"]
-            lib_ms, why = library_ms(rotating(fn, *args))
-        b_ms, b_by = bound_ms(case["nbytes"], case["ops"])
-        k_ms, k_host = time_ms(rotating(case["kern"], *case["args"]))
-        warm_ms, _ = time_ms(lambda c=case: c["kern"](*c["args"]))
-        p_ms, _ = time_ms(rotating(case["plain"], *case["plain_args"]))
-        ds = case["args"][0].dtype
-        if name == "sddmm_mh" and torch.bfloat16 in (ds, case["args"][1]
-                                                     .dtype):
-            ds = torch.bfloat16
-        plan = multihead_plan(name, case["heads"], case["c"], ds)
-        label = f"H={case['heads']} C={case['c']}"
-        print(f"[gat] {name:8s} {case['role']:9s} {label:8s} "
-              f"{case['dtype']:15s} err {err:.2e} (tol {tol:.1e}) device, "
-              f"cold L2: kernel {k_ms * 1e3:7.2f} us ({b_ms / k_ms:.2f} of "
-              f"bound)  plain {p_ms * 1e3:8.2f} us  bound "
-              f"{b_ms * 1e3:5.2f} us ({b_by})  library "
-              + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
-                 else f"n/a ({why})")
-              + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
-              f"{k_host * 1e3:6.2f} us; plan {plan_label(plan)}", flush=True)
         if (case["role"], case["c"], case["dtype"]) in (
                 ("forward", 16, "float32"), ("dots", 16, "float32")):
-            records[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                                 bound_ms=b_ms, bound_by=b_by)
+            records[name] = rec
+            k_ms, b_ms = rec["ms"], rec["bound_ms"]
             print(f"[gat] {name} H=4 C=16 float32: cold {k_ms * 1e3:.2f} us "
                   f"against half its bound's target {2 * b_ms * 1e3:.2f} us: "
                   + ("met" if k_ms <= 2 * b_ms else "NOT met"), flush=True)
@@ -2344,7 +2391,8 @@ def resume_cfg(path: Path, directory: Path, changes: dict | None = None):
     return cfg
 
 
-def phase_resume(path: Path, expected, label: str, check_lr: bool = False):
+def phase_resume(path: Path, expected, label: str, check_lr: bool = False,
+                 changes: dict | None = None):
     """[resume] A 4-epoch fit uninterrupted, then again cut after epoch 1
     (its latest snapshot saved) and resumed by a fresh model, optimizer
     and Checkpointer: epochs 2-3's train losses within 1e-6 relative of
@@ -2353,7 +2401,8 @@ def phase_resume(path: Path, expected, label: str, check_lr: bool = False):
     its run alone, must be ``expected``'s; with ``check_lr``, the lr read
     back after every train row of both runs equals the schedule at that
     row's count of applied updates, within 1e-7.  Returns (the resumed
-    run's launches, its FitResult, the config it ran)."""
+    run's launches, its FitResult, the config it ran).  ``changes`` are
+    set on the config (``load_with``)."""
     import torch
 
     from graph_hscn_tpu_torch.runner import run_experiment
@@ -2361,8 +2410,9 @@ def phase_resume(path: Path, expected, label: str, check_lr: bool = False):
 
     lrs_full, lrs_resumed = [], []
     with recording_lr(lrs_full):
-        full = run_experiment(resume_cfg(path, SCRATCH / f"{label}_full"))
-    cfg = resume_cfg(path, SCRATCH / label)
+        full = run_experiment(resume_cfg(path, SCRATCH / f"{label}_full",
+                                         changes))
+    cfg = resume_cfg(path, SCRATCH / label, changes)
     with interrupted_after(1):
         try:
             run_experiment(cfg)
@@ -2456,14 +2506,16 @@ def eval_batches(cfg) -> int:
     return len(dm.eval_batches("val")) + len(dm.eval_batches("test"))
 
 
-def phase_eval(cfg, best: float, expected) -> dict:
+def phase_eval(cfg, best: float, expected, evals: int | None = None) -> dict:
     """[eval] run_eval(cfg, "best") after a fit into its checkpoint_dir:
     the val loss equal to the fit's best within rtol=1e-5, atol=1e-6 (the
     JAX package's criterion, tests/test_checkpoint.py:116-117), and the
-    kernel launches ``expected(cfg, 0, eval batches)``.  Returns the
-    launches."""
+    kernel launches ``expected(cfg, 0, eval batches)``; ``evals``: the
+    eval forwards where they are not the host batches (an
+    edge-partitioned run scores val and test in one forward each).
+    Returns the launches."""
     from graph_hscn_tpu_torch.runner import run_eval
-    n = eval_batches(cfg)
+    n = eval_batches(cfg) if evals is None else evals
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
@@ -2487,16 +2539,21 @@ def phase_eval(cfg, best: float, expected) -> dict:
     return launches
 
 
-def phase_predict(path: Path, directory: Path) -> None:
+def phase_predict(path: Path, directory: Path,
+                  changes: dict | None = None) -> None:
     """[eval] ``python -m graph_hscn_tpu_torch.main --eval best --predict
     out.npz`` in a subprocess on ``path`` with its checkpoint_dir set to
-    ``directory``: the .npz holds val and test scores and targets with the
-    splits' real row counts (graphs, or nodes at node level)."""
+    ``directory`` (and ``changes``, {"section.field": value} of the YAML):
+    the .npz holds val and test scores and targets with the splits' real
+    row counts (graphs, or nodes at node level)."""
     import yaml
 
     from graph_hscn_tpu_torch.data.pipeline import DataModule
     raw = yaml.safe_load(path.read_text())
     raw["training"]["checkpoint_dir"] = str(directory)
+    for key, value in (changes or {}).items():
+        section, field = key.split(".")
+        raw[section][field] = value
     SCRATCH.mkdir(parents=True, exist_ok=True)
     cfg_file, out = SCRATCH / f"{path.stem}.yaml", SCRATCH / "out.npz"
     cfg_file.write_text(yaml.safe_dump(raw))
@@ -2713,6 +2770,360 @@ def eigen_errors(evals, evects, hosts) -> tuple:
     return val_err, proj_err, ks
 
 
+def ep_launches(cfg, steps, evals):
+    """The edge-partitioned fit (parallel/sharded_gcn.py): a layer whose
+    local aggregation takes the kernels (its F, or H*C for GAT, at least
+    WIDTH_GATE) launches, GCN, csr_spmm forward and transpose in a train
+    step and forward in an eval forward; GAT, spmm_mh forward and dx and
+    sddmm_mh (d alpha) in a train step, spmm_mh forward in an eval
+    forward; GIN nothing.  ``evals`` counts the eval forwards (val, test,
+    and the train metric's on an eval epoch)."""
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import WIDTH_GATE
+    conv = cfg.mpnn.conv_type.lower()
+    heads = cfg.mpnn.num_heads if conv == "gat" else 1
+    widths = ([cfg.mpnn.hidden_channels] * (cfg.mpnn.num_layers - 1)
+              + [heads * VOC_CLASSES])
+    k = sum(w >= WIDTH_GATE for w in widths)
+    if conv == "gcn":
+        return {"csr_spmm": 2 * k * steps + k * evals}
+    if conv == "gat":
+        return {"spmm_mh": 2 * k * steps + k * evals, "sddmm_mh": k * steps}
+    return {}
+
+
+def ep_setup(path: Path, changes: dict, device):
+    """(cfg, dm, conv, the sharded model from seed 0 on ``device``, the
+    mesh) of an edge-partition config on a 1-rank mesh, within a process
+    group."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import build_sharded_model
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+
+    cfg = load_with(path, changes)
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    conv = cfg.mpnn.conv_type.lower()
+    dims = ([dm.num_features]
+            + [cfg.mpnn.hidden_channels] * (cfg.mpnn.num_layers - 1)
+            + [dm.num_classes])
+    model = build_sharded_model(conv, dims, heads=cfg.mpnn.num_heads,
+                                generator=torch.Generator().manual_seed(0))
+    return cfg, dm, conv, model.to(device), make_mesh(("data",), (1,),
+                                                      device)
+
+
+def phase_edge_partition_kernels() -> None:
+    """csr_spmm (B1) and spmm_mh / sddmm_mh (B6, B7) at the edge-partition
+    block: the train split of ``GCN_EP`` packed, locality-reordered and
+    planned as fit_edge_partitioned does on one rank (its local-edge
+    CsrPlan), on the card.  csr_spmm forward and transpose at F = 64 with
+    the block's GCN weights (``check_spmm_batch``); spmm_mh forward and
+    transpose and sddmm_mh (d alpha) at H = 4, C = 16 and 21, float32
+    (``time_case``, each held at 1e-5 * max|ref|)."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import partition_split
+
+    cfg = load_with(GCN_EP, ONE_RANK)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    with process_group(torch.device("cuda")) as device:
+        split = partition_split(dm.split("train"),
+                                make_mesh(("data",), (1,), device),
+                                cfg.mesh.locality_reorder, use_plan=True)
+        blk = split.block
+        w = blk.gcn_norm()[0]
+        p = blk.csr
+        i = split.info
+        print(f"[edge_partition] block: N_b={i['block_rows']} rows, "
+              f"E={i['edges']} real edges ({p.col.numel()} slots with "
+              f"padding), H={i['halo_width']}, host plan "
+              f"{i['seconds']:.3f} s", flush=True)
+        check_spmm_batch("edge-partition block", p, w,
+                         [("forward", cfg.mpnn.hidden_channels),
+                          ("transpose", cfg.mpnn.hidden_channels)])
+        for case in gat_cases(p):
+            if case["c"] in (16, 21) and case["dtype"] == "float32":
+                time_case("[edge_partition]", case)
+        # The GAT step's attention gathers are stock index_select over the
+        # block's edges: their time at its two row widths, as a yardstick.
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        snd = p.col.long()
+        for f in (4, cfg.mpnn.hidden_channels):
+            x = torch.randn(p.num_nodes, f, device="cuda", generator=gen)
+            g_ms, _ = time_ms(rotating(torch.index_select, x, 0, snd))
+            b_ms, _ = bound_ms(snd.numel() * (8 + 4 * f) + x.numel() * 4, 0)
+            print(f"[edge_partition] yardstick: index_select of [{p.num_nodes},"
+                  f" {f}] float32 rows by the block's {snd.numel()} senders: "
+                  f"{g_ms * 1e3:.2f} us cold (bound {b_ms * 1e3:.2f} us, "
+                  "bytes)", flush=True)
+
+
+def phase_edge_partition(path: Path, changes: dict, label: str,
+                         focus: dict | None = None) -> None:
+    """[edge_partition] An edge-partition config on a 1-rank NCCL mesh at
+    full width: its full-batch train step (``loss_and_grads``, the
+    all_reduce, AdamW) profiled over the train split's block (device busy
+    time, idle share, the kernels' and NCCL's device time); then the model
+    on the val split, card (the kernels) against the CPU (a 1-rank gloo
+    mesh, plain versions): logits within 1e-5 * max|ref|, the loss and
+    every gradient within 1e-4 * max|ref|, the gradients on the card's
+    activation pattern (``KinkPins``)."""
+    import torch
+
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
+        KERNEL_CONVS, loss_and_grads, partition_split)
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    outs = {}
+    with process_group(torch.device("cuda")) as device:
+        cfg, dm, conv, model, mesh = ep_setup(path, changes, device)
+        reorder = cfg.mesh.locality_reorder
+        train = partition_split(dm.split("train"), mesh, reorder,
+                                conv in KERNEL_CONVS)
+        opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                              cfg.optim.lr, cfg.optim.weight_decay)
+
+        def step(_):
+            model.train()
+            loss_and_grads(model, train.block)
+            opt.step()
+
+        profile_steps(f"edge-partition {label}", step, lambda i: None,
+                      focus={**(focus or {}),
+                             "NCCL kernels and copies (halo all_to_all, "
+                             "all_reduce)": ("nccl", "Memcpy")})
+        ms = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(None)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[edge_partition] {label} steady train step ms (synchronised "
+              f"host clock, 10 steps after the profiled ones): median "
+              f"{statistics.median(ms):.3f}, min {min(ms):.3f}, max "
+              f"{max(ms):.3f}", flush=True)
+        del train
+        val = partition_split(dm.split("val"), mesh, reorder,
+                              conv in KERNEL_CONVS)
+        pins = KinkPins()
+        outs["cuda"] = reference_outputs(model, val.block, pins.record())
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+    with process_group(torch.device("cpu")) as device:
+        model = model.cpu()
+        model.load_state_dict(state)
+        val = partition_split(dm.split("val"), make_mesh(("data",), (1,),
+                                                         device), reorder)
+        outs["cpu"] = reference_outputs(model, val.block, pins.replay())
+    if pins.flips > 1e-5 * pins.count:
+        fail(f"edge-partition {label}: {pins.flips} of {pins.count} "
+             "activation decisions differ between the card and the CPU "
+             "(rounding flips a handful; limit 1e-5 of them)")
+    worst = []
+    for i, (ref, got) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        scale = max(float(ref.abs().max()), 1e-6)
+        err = float((got.cpu() - ref).abs().max())
+        tol = (1e-5 if i == 0 else 1e-4) * scale
+        if not got.isfinite().all() or err > tol:
+            fail(f"edge-partition {label} card vs CPU, output {i}: max "
+                 f"|err| {err:.3e} > {tol:.3e}")
+        worst.append(err / scale)
+    print(f"[reference] edge-partition {label}, val split (N={val.info['rows']}"
+          f", {val.info['edges']} edges): logits max |err| / max|ref| "
+          f"{worst[0]:.2e} (limit 1e-5); loss and {len(worst) - 2} "
+          f"gradients worst {max(worst[1:]):.2e} (limit 1e-4; {pins.flips} "
+          f"of {pins.count} activation decisions differed on the CPU and "
+          "took the card's)", flush=True)
+
+
+class KinkPins:
+    """The ReLU and leaky-ReLU decisions (``x > 0``, ``x >= 0``) of the
+    sharded models (``parallel/sharded_gcn.py``), recorded on one run and
+    replayed, in the same order, on another.
+
+    The gradient of a piecewise-linear network jumps where a
+    pre-activation crosses 0.  Of the ~2e7 decisions of a val-split
+    gradient, the card's float32 and the CPU's may put a few on opposite
+    sides (rounding apart, both right): the parameter gradient that sums
+    over such a row then differs by a whole term, ~2e-4 * max|ref| at this
+    size (seen on the H100 with 2 such decisions, while every gradient
+    agreed within 3e-6 with them replayed).  The CPU's gradient pass takes
+    the card's decisions, so both are held on the same linear piece; its
+    own decisions that differed are counted in ``flips``."""
+
+    def __init__(self):
+        self.masks, self.flips, self.count = [], 0, 0
+
+    @contextlib.contextmanager
+    def record(self):
+        self.masks = []
+
+        def keep(m):
+            self.masks.append(m.cpu())
+            return m
+
+        with self._patched(keep):
+            yield
+        self.count = sum(m.numel() for m in self.masks)
+
+    @contextlib.contextmanager
+    def replay(self):
+        queue = iter(self.masks)
+        self.flips = 0
+
+        def take(m):
+            card = next(queue, None)
+            if card is None or card.shape != m.shape:
+                fail("KinkPins: the replayed run's activation decisions do "
+                     "not follow the recorded one's")
+            card = card.to(m.device)
+            self.flips += int((card != m).sum())
+            return card
+
+        with self._patched(take):
+            yield
+        if next(queue, None) is not None:
+            fail("KinkPins: the replayed run made fewer activation "
+                 "decisions than the recorded one")
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _patched(decide):
+        import types
+
+        import torch
+        import torch.nn.functional as F
+
+        from graph_hscn_tpu_torch.models.layers import GAT_NEGATIVE_SLOPE
+        from graph_hscn_tpu_torch.parallel import sharded_gcn
+
+        def relu(x):
+            return torch.where(decide(x > 0), x, 0.0)
+
+        def leaky_relu(x):
+            return torch.where(decide(x >= 0), x, GAT_NEGATIVE_SLOPE * x)
+
+        functional = types.SimpleNamespace(**{
+            k: getattr(F, k) for k in dir(F) if not k.startswith("_")})
+        functional.relu = relu
+        saved = sharded_gcn.F, sharded_gcn.leaky_relu
+        sharded_gcn.F, sharded_gcn.leaky_relu = functional, leaky_relu
+        try:
+            yield
+        finally:
+            sharded_gcn.F, sharded_gcn.leaky_relu = saved
+
+
+def kink_study(snapshots: int) -> None:
+    """``--kink-study N``: what the activation pins do.  For each
+    edge-partition model (1-rank mesh, full width), N weight states 3
+    AdamW steps apart on the card; at each, the val split's outputs on the
+    card twice (its own run-to-run spread) and on the CPU unpinned and
+    pinned to the card's decisions: the worst relative error of the
+    gradients each way, and the decisions that differed."""
+    import torch
+
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
+        KERNEL_CONVS, loss_and_grads, partition_split)
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    def worst(got, ref):
+        return max(float((g.cpu() - r).abs().max())
+                   / max(float(r.abs().max()), 1e-6)
+                   for g, r in zip(got[2:], ref[2:]))
+
+    for path, changes, label in ((GAT_EP, ONE_RANK, "GAT"),
+                                 (GCN_EP, ONE_RANK, "GCN"),
+                                 (GCN_EP, GIN_EP, "GIN")):
+        states = []
+        with process_group(torch.device("cuda")) as device:
+            cfg, dm, conv, model, mesh = ep_setup(path, changes, device)
+            reorder = cfg.mesh.locality_reorder
+            train = partition_split(dm.split("train"), mesh, reorder,
+                                    conv in KERNEL_CONVS)
+            val = partition_split(dm.split("val"), mesh, reorder,
+                                  conv in KERNEL_CONVS)
+            opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                                  cfg.optim.lr, cfg.optim.weight_decay)
+            for _ in range(snapshots):
+                for _ in range(3):
+                    model.train()
+                    loss_and_grads(model, train.block)
+                    opt.step()
+                pins = KinkPins()
+                card = reference_outputs(model, val.block, pins.record())
+                again = reference_outputs(model, val.block)
+                states.append(({k: v.cpu() for k, v in
+                                model.state_dict().items()}, pins,
+                               [t.cpu() for t in card], again))
+            del train, val
+        with process_group(torch.device("cpu")) as device:
+            model = model.cpu()
+            val = partition_split(dm.split("val"), make_mesh(
+                ("data",), (1,), device), reorder)
+            for i, (state, pins, card, again) in enumerate(states):
+                model.load_state_dict(state)
+                free = reference_outputs(model, val.block)
+                pinned = reference_outputs(model, val.block, pins.replay())
+                print(f"[kinks] {label} state {i} (step {3 * (i + 1)}): "
+                      f"gradients' max |err| / max|ref|, card again "
+                      f"{worst(again, card):.2e}, CPU unpinned "
+                      f"{worst(card, free):.2e}, CPU pinned "
+                      f"{worst(card, pinned):.2e}; {pins.flips} of "
+                      f"{pins.count} decisions differed", flush=True)
+
+
+def reference_outputs(model, blk, pins=None) -> list:
+    """[logits, loss, every gradient] of the sharded model on a block; the
+    gradient pass within ``pins`` (a ``KinkPins`` context) where given."""
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (gather_logits,
+                                                           loss_and_grads)
+    logits = gather_logits(model, blk)
+    model.train()
+    with pins or contextlib.nullcontext():
+        loss = loss_and_grads(model, blk)
+    return [logits, loss.reshape(1)] + [p.grad.clone()
+                                        for p in model.parameters()]
+
+
+def phase_edge_partition_runs() -> dict:
+    """The edge-partition configs through the port's entry points on one
+    card ([edge_partition] train lines: N_b, E, H, the host plan's
+    seconds, step ms; profiles and card-vs-CPU references; [resume] and
+    [eval] of the GCN one, the predict export in a subprocess).  Returns
+    the kernels' launches of the train, resumed and eval runs."""
+    from collections import Counter
+    launches = Counter()
+    for path, changes, label, focus in (
+            (GCN_EP, ONE_RANK, "GCN", GCN_FOCUS),
+            (GAT_EP, ONE_RANK, "GAT", GAT_FOCUS),
+            (GCN_EP, GIN_EP, "GIN", None)):
+        got, result = train_run(path, ep_launches, "edge_partition",
+                                changes)[:2]
+        launches.update(got)
+        for split, i in result.partition.items():
+            print(f"[edge_partition] {label} {split}: N_b={i['block_rows']} "
+                  f"rows, E={i['edges']} real edges (local "
+                  f"{i['local_edges']}, halo {i['halo_edges']}), "
+                  f"H={i['halo_width']}, host plan {i['seconds']:.3f} s",
+                  flush=True)
+        phase_edge_partition(path, changes, label, focus)
+    resumed, fit, cfg = phase_resume(GCN_EP, ep_launches, "ep_gcn",
+                                     changes=ONE_RANK)
+    launches.update(resumed)
+    launches.update(phase_eval(cfg, fit.best_val_loss, ep_launches,
+                               evals=2))
+    phase_predict(GCN_EP, SCRATCH / "ep_gcn", ONE_RANK)
+    return dict(launches)
+
+
 def main() -> int:
     if not (REPO / "graph_hscn_tpu_torch" / "csrc").is_dir():
         fail(f"{REPO} holds no graph_hscn_tpu_torch package: run the script "
@@ -2725,11 +3136,17 @@ def main() -> int:
     started = time.perf_counter()
     name, count, smi = phase_device()
     build_logs = phase_build()
+    if sys.argv[1:2] == ["--kink-study"]:
+        kink_study(int(sys.argv[2]))
+        return 0
     kernels = (phase_kernels() + phase_fused_kernels(build_logs)
                + phase_gat_kernels() + phase_gatedgcn_kernels())
     phase_hbm()
     phase_hscn_kernels()
     phase_gin_kernels()
+    t_ep = time.perf_counter()
+    phase_edge_partition_kernels()
+    t_ep = time.perf_counter() - t_ep
     # Each path's launches, counted from its own run alone.
     # The device-resident configs (capture_run) train captured, then
     # eagerly beside.
@@ -2800,7 +3217,11 @@ def main() -> int:
     phase_predict(PEPTIDES_FUSED, SCRATCH / "fused")
     phase_cluster_routes(PEPTIDES_HSCN)
     phase_pe()
-    for counts in (voc, fused_fit, *evals):
+    t0 = time.perf_counter()
+    ep = phase_edge_partition_runs()
+    print(f"[time] the edge-partition phases: "
+          f"{t_ep + time.perf_counter() - t0:.1f} s wall", flush=True)
+    for counts in (voc, fused_fit, *evals, ep):
         for kernel, n in counts.items():
             launches[kernel] += n
     for k in kernels:

@@ -361,3 +361,44 @@ def encoded_params_from_jax(params, core_from_jax, rho_layers: int,
     state.update({f"core.{k}": v
                   for k, v in core_from_jax(params["core"]).items()})
     return state
+
+
+def _sharded_layers(params, names: dict) -> dict[str, torch.Tensor]:
+    """A JAX sharded stack's list of per-layer dicts -> ``layers.i.`` +
+    ``names[leaf]``; kernels [in, out] transposed to weights [out, in]."""
+    state = {}
+    for i, layer in enumerate(params):
+        if set(layer) != set(names):
+            raise ValueError(f"unexpected sharded params {sorted(layer)} in "
+                             f"layer {i} (want {sorted(names)})")
+        for leaf, value in layer.items():
+            value = np.asarray(value, dtype=np.float32)
+            if leaf in ("kernel", "w1", "w2"):
+                value = value.T
+            state[f"layers.{i}.{names[leaf]}"] = torch.from_numpy(
+                value.copy())
+    return state
+
+
+def sharded_gcn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """``init_sharded_gcn_params``' list of ``{"kernel", "bias"}`` -> the
+    port ShardedGCN's ``state_dict`` (``layers.i.weight``, ``.bias``)."""
+    return _sharded_layers(params, {"kernel": "weight", "bias": "bias"})
+
+
+def sharded_gin_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """``init_sharded_gin_params``' list of ``{"w1", "b1", "w2", "b2"}``
+    -> the port ShardedGIN's ``state_dict`` (``layers.i.lin1`` and
+    ``.lin2``)."""
+    return _sharded_layers(params, {
+        "w1": "lin1.weight", "b1": "lin1.bias", "w2": "lin2.weight",
+        "b2": "lin2.bias"})
+
+
+def sharded_gat_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """``init_sharded_gat_params``' list of ``{"kernel" [in, H*C],
+    "att_src", "att_dst" [H, C], "bias"}`` -> the port ShardedGAT's
+    ``state_dict``."""
+    return _sharded_layers(params, {
+        "kernel": "weight", "att_src": "att_src", "att_dst": "att_dst",
+        "bias": "bias"})

@@ -11,6 +11,10 @@ run_train, main.py:85-120), its single-device paths:
         (hscn_pipeline.py), on host batches or the device-resident
         dataset.
 
+  mesh: ``mesh.edge_partition`` on a 1-D mesh: the sharded GCN, GIN or
+        GAT over the ranks of a process group (parallel/sharded_gcn.py),
+        one rank a device; without a group the run makes a 1-rank one.
+
 With ``pe`` set, the eigen stats (and the frozen SignNet transform) come
 first, or the trainable SignNet wraps the model; with
 ``training.checkpoint_dir`` every fit saves and resumes; :func:`run_eval`
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from graph_hscn_tpu_torch.config import defaults as D
 from graph_hscn_tpu_torch.config.config import ExperimentConfig
@@ -40,6 +45,9 @@ from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
 from graph_hscn_tpu_torch.models.layers import resolve_dtype
 from graph_hscn_tpu_torch.models.mpnn import build_mpnn
 from graph_hscn_tpu_torch.ops import spmm as spmm_mod
+from graph_hscn_tpu_torch.parallel.mesh import (make_mesh, process_group,
+                                                resolve_mesh_shape, this_rank)
+from graph_hscn_tpu_torch.parallel.sharded_gcn import fit_edge_partitioned
 from graph_hscn_tpu_torch.train.checkpoint import Checkpointer
 from graph_hscn_tpu_torch.train.loop import (FitResult, evaluate_checkpoint,
                                              fit, fit_device)
@@ -80,7 +88,7 @@ def _refuse_later_slices(cfg: ExperimentConfig) -> None:
     if rt.multihost == "on":
         raise NotImplementedError(
             "runtime.multihost: on (utils/profiling.py:"
-            "maybe_init_distributed): ROADMAP queue A, item 11")
+            "maybe_init_distributed): ROADMAP queue A, item 11.4")
 
 
 def _setup_run(cfg: ExperimentConfig, device) -> tuple:
@@ -104,7 +112,8 @@ def run_experiment(cfg: ExperimentConfig, device=None, log_file=None,
     _refuse_later_slices(cfg)
     device, compute_dtype = _setup_run(cfg, device)
     logger = Logger(log_file=log_file, metric_name=cfg.training.metric,
-                    use_wandb=cfg.training.use_wandb)
+                    use_wandb=cfg.training.use_wandb,
+                    quiet=this_rank() != 0)
     try:
         return _run(cfg, device, compute_dtype, logger, step_timing)
     finally:
@@ -179,24 +188,69 @@ def _model(cfg: ExperimentConfig, dm, device, compute_dtype, logger,
     return model.to(device)
 
 
-def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
-    dm = _data(cfg, device, logger)
-    node_level = dm.task_level == "node"
-    shape = _resolve_mesh_shape(cfg.mesh.shape)
-    mesh_size = int(np.prod(shape))
+def _mesh_shape(cfg: ExperimentConfig, dm) -> list[int] | None:
+    """The mesh route's shape, None for a single-device run.  The routes
+    not ported raise, naming their ROADMAP item; the rest is JAX's checks
+    (runner.py:151-177)."""
+    shape = resolve_mesh_shape(cfg.mesh.shape)
     if cfg.hscn is not None:
+        # JAX's HSCN takes the mesh only with edge_partition.
         if cfg.mesh.edge_partition:
             raise NotImplementedError(
                 "edge-partitioned HSCN (parallel/sharded_scn.py): ROADMAP "
-                "queue A, item 11")
+                "queue A, item 11.3")
+        return None
+    if int(np.prod(shape)) == 1 and not cfg.mesh.edge_partition:
+        return None
+    if not cfg.mesh.edge_partition:
+        raise NotImplementedError(
+            f"data-parallel mesh.shape {shape} (parallel/data_parallel.py:"
+            "fit_dp): ROADMAP queue A, item 11.4")
+    if len(shape) != 1:
+        raise NotImplementedError(
+            f"2-D mesh.shape {shape} (parallel/hybrid.py:fit_hybrid): "
+            "ROADMAP queue A, item 11.4")
+    if dm.task_level != "node":
+        raise ValueError("mesh.edge_partition targets node-level tasks "
+                         "(giant-graph full-batch training)")
+    if cfg.pe is not None and not cfg.compat.frozen_random_signnet:
+        # The trainable SignNet wraps a model the sharded programs do not
+        # use: refused rather than trained without PE.
+        raise ValueError("edge-partitioned paths support PE only as the "
+                         "precomputed transform; set "
+                         "compat.frozen_random_signnet: true")
+    return shape
+
+
+def _edge_partitioned(cfg: ExperimentConfig, dm, shape, device,
+                      compute_dtype, logger, **kwargs):
+    """``fit_edge_partitioned`` on a mesh of ``shape`` over the process
+    group (made for the run when none exists)."""
+    with process_group(device) as device:
+        mesh = make_mesh(tuple(cfg.mesh.axes), tuple(shape), device)
+        logger.info(f"Edge-partitioned {cfg.mpnn.conv_type} over "
+                    f"{mesh.size} ranks on {device} (halo exchange, "
+                    f"{dist.get_backend()}).")
+        return fit_edge_partitioned(
+            dm, mesh, cfg.mpnn, cfg.optim, cfg.training, logger,
+            checkpointer=_checkpointer(cfg),
+            reorder=cfg.mesh.locality_reorder, dtype=compute_dtype,
+            **kwargs)
+
+
+def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
+    dm = _data(cfg, device, logger)
+    node_level = dm.task_level == "node"
+    shape = _mesh_shape(cfg, dm)
+    if shape is not None:
+        return _edge_partitioned(cfg, dm, shape, device, compute_dtype,
+                                 logger, step_timing=step_timing)
+    if cfg.hscn is not None:
         return run_hscn_pipeline(
             cfg, dm, logger, device, compute_dtype,
             use_device_dataset=_use_device_dataset(cfg, dm),
             step_timing=step_timing, checkpointer=_checkpointer(cfg))
     model = _model(cfg, dm, device, compute_dtype, logger)
-    if mesh_size > 1 or cfg.mesh.edge_partition:
-        raise NotImplementedError("mesh.shape > 1 / mesh.edge_partition: "
-                                  "ROADMAP queue A, item 11")
     if _use_device_dataset(cfg, dm):
         logger.info("Device-resident dataset path on.")
         return fit_device(
@@ -236,34 +290,39 @@ def run_eval(cfg: ExperimentConfig, which: str = "best", device=None,
     """
     if not cfg.training.checkpoint_dir:
         raise ValueError("eval mode needs training.checkpoint_dir")
-    if cfg.mesh.edge_partition:
-        raise NotImplementedError(
-            "eval of an edge-partitioned run (parallel/): ROADMAP queue A, "
-            "item 11")
     device, compute_dtype = _setup_run(cfg, device)
-    logger = Logger(log_file=log_file, metric_name=cfg.training.metric)
+    logger = Logger(log_file=log_file, metric_name=cfg.training.metric,
+                    quiet=this_rank() != 0)
     try:
         dm = _data(cfg, device, logger)
-        if cfg.hscn is not None:
-            model, _ = cluster_on_host(cfg, dm, logger, device,
-                                       compute_dtype)
-        else:
-            model = _model(cfg, dm, device, compute_dtype, logger,
-                           signnet_on_fused=False)
         sink = {} if predict_out else None
-        results, meta = evaluate_checkpoint(
-            model, {"val": dm.eval_batches("val"),
-                    "test": dm.eval_batches("test")},
-            cfg.training, Checkpointer(cfg.training.checkpoint_dir), device,
-            which=which, node_level=dm.task_level == "node",
-            compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-            predictions_sink=sink)
+        shape = _mesh_shape(cfg, dm)
+        if shape is not None:
+            # The sharded forward restores the sharded model's snapshot
+            # (fit_edge_partitioned's eval-only mode); rank 0 writes.
+            results, meta = _edge_partitioned(
+                cfg, dm, shape, device, compute_dtype, logger,
+                eval_only=which, predictions_sink=sink)
+        else:
+            if cfg.hscn is not None:
+                model, _ = cluster_on_host(cfg, dm, logger, device,
+                                           compute_dtype)
+            else:
+                model = _model(cfg, dm, device, compute_dtype, logger,
+                               signnet_on_fused=False)
+            results, meta = evaluate_checkpoint(
+                model, {"val": dm.eval_batches("val"),
+                        "test": dm.eval_batches("test")},
+                cfg.training, Checkpointer(cfg.training.checkpoint_dir),
+                device, which=which, node_level=dm.task_level == "node",
+                compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+                predictions_sink=sink)
         for split, m in results.items():
             logger.info(f"[eval:{which}] {split}: " + ", ".join(
                 f"{k}={v:.4f}" for k, v in m.items()))
         if meta:
             logger.info(f"[eval:{which}] snapshot meta: {meta}")
-        if sink is not None:
+        if sink is not None and this_rank() == 0:
             arrays = {f"{split}_{k}": v for split, d in sink.items()
                       for k, v in d.items()}
             np.savez(predict_out, **arrays)
@@ -272,16 +331,6 @@ def run_eval(cfg: ExperimentConfig, which: str = "best", device=None,
         return results
     finally:
         logger.finish()
-
-
-def _resolve_mesh_shape(shape) -> list[int]:
-    """Config mesh shape with ``-1`` ("all remaining devices on that axis")
-    resolved against the visible CUDA devices."""
-    shape = list(shape)
-    if -1 in shape:
-        fixed = int(np.prod([s for s in shape if s != -1])) or 1
-        shape[shape.index(-1)] = max(torch.cuda.device_count(), 1) // fixed
-    return shape
 
 
 def _use_fused_stack(cfg: ExperimentConfig, dm, device) -> bool:

@@ -57,6 +57,9 @@ class FitResult:
     # Replays of the captured train and eval steps (the device route on
     # the card): each epoch's rows but a fit's first train and eval row.
     replays: dict = dataclasses.field(default_factory=dict)
+    # The edge-partitioned fit's plan of each split (parallel/sharded_gcn.py:
+    # rows, block rows, edges, halo width, host seconds).
+    partition: dict = dataclasses.field(default_factory=dict)
 
 
 def _maybe_resume(model, opt, generator, checkpointer, device,

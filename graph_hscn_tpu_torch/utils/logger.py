@@ -17,10 +17,14 @@ from pathlib import Path
 
 class Logger:
     def __init__(self, log_file: str | Path | None = None,
-                 metric_name: str = "metric", use_wandb: bool = False):
+                 metric_name: str = "metric", use_wandb: bool = False,
+                 quiet: bool = False):
+        """``quiet``: log nothing (a rank other than 0 of a process
+        group)."""
         self.logger = logging.getLogger(f"graph_hscn_tpu_torch.{id(self)}")
         self.logger.setLevel(logging.DEBUG)
         self.logger.propagate = False
+        self.logger.disabled = quiet
         fmt = logging.Formatter("%(asctime)s %(levelname)s | %(message)s")
         sh = logging.StreamHandler(sys.stdout)
         sh.setFormatter(fmt)

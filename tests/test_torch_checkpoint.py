@@ -316,8 +316,9 @@ def test_eval_only_mode(fused, tmp_path):
 def test_predict_export(tmp_path, monkeypatch):
     """``main --eval best --predict OUT.npz`` on the CPU writes each
     split's scores and targets over its real rows; --predict without
-    --eval is a parser error; the eval of an edge-partitioned config
-    raises (ROADMAP queue A, item 11)."""
+    --eval is a parser error; the eval of an edge-partitioned config of
+    this graph-level task raises, as its training does (node-level tasks
+    only; the edge-partitioned eval is tests/test_torch_sharded_gcn.py)."""
     import yaml
 
     from graph_hscn_tpu_torch import main as cli
@@ -346,7 +347,7 @@ def test_predict_export(tmp_path, monkeypatch):
         cli.main()
     ep = parse_config(_raw(tmp_path / "ck", mesh={
         "axes": ["data"], "shape": [1], "edge_partition": True}))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="node-level"):
         run_eval(ep, device="cpu")
 
 

@@ -1456,3 +1456,55 @@ def test_encoded_model_on_the_card_matches_the_cpu():
     for ref, got in zip(outs["cpu"], outs["cuda"]):
         assert bool(got.isfinite().all())
         assert_close(got, ref, 1e-4)
+
+
+# --- the edge-partitioned models (parallel/sharded_gcn.py) ----------------
+
+@pytest.mark.parametrize("conv", ["gcn", "gat"])
+def test_sharded_model_on_the_card_matches_the_cpu(conv):
+    """The sharded GCN and GAT (hidden 64, 4 heads for GAT) on a 1-rank
+    mesh over an 8-graph VOC batch, locality-reordered: the card (a 1-rank
+    NCCL group, the kernels on the local-edge CsrPlan) against the CPU (a
+    1-rank gloo group, the plain path) under matmul_precision highest
+    (pinned, then restored): logits within 1e-5*max|ref|, the loss and
+    every gradient within 1e-4*max|ref|; the kernels launched a layer as
+    the fit counts them."""
+    need_card()
+    import copy
+
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
+        build_sharded_model, gather_logits, loss_and_grads, partition_arrays)
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    graphs = make_voc_superpixels(num_graphs=8, seed=17)
+    b = pack_batch(graphs, PadBudget.for_dataset(graphs, 8))
+    model = build_sharded_model(conv, [14, 64, 64, 21], heads=4,
+                                generator=torch.Generator().manual_seed(2))
+    kernels = {"gcn": (csr_spmm,), "gat": (spmm_mh, sddmm_mh)}[conv]
+    outs = {}
+    prev = torch.get_float32_matmul_precision()
+    set_matmul_precision("highest")
+    try:
+        for dev in ("cpu", "cuda"):
+            with process_group(torch.device(dev)) as device:
+                blk = partition_arrays(
+                    b.senders, b.receivers, b.edge_mask, b.node_feat,
+                    b.node_y, b.node_mask, make_mesh(("data",), (1,), device),
+                    use_plan=dev == "cuda").block
+                m = copy.deepcopy(model).to(device)
+                before = [k.launches for k in kernels]
+                logits = gather_logits(m, blk)
+                m.train()
+                loss = loss_and_grads(m, blk)
+                torch.cuda.synchronize()
+                launched = [k.launches - n for k, n in zip(kernels, before)]
+                outs[dev] = [logits, loss.reshape(1)] + [
+                    p.grad for p in m.parameters()]
+    finally:
+        set_matmul_precision("highest" if prev == "highest" else "default")
+    # GCN: 2 layers of width 64 (forward, then forward + transpose); GAT:
+    # 3 layers of H*C >= 64 (spmm_mh forward, forward + dx; sddmm_mh d alpha).
+    assert launched == ([6] if conv == "gcn" else [9, 3])
+    for i, (ref, got) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        assert bool(got.isfinite().all())
+        assert_close(got, ref, 1e-5 if i == 0 else 1e-4)

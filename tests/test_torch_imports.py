@@ -1,5 +1,5 @@
-"""The port stands alone: no module of graph_hscn_tpu_torch/, and not
-chip_smoke.py, imports JAX, its libraries or the JAX package (the card's
+"""The port stands alone: no module of graph_hscn_tpu_torch/, not
+chip_smoke.py and not the gloo ranks' tests/torch_dist.py imports JAX, its libraries or the JAX package (the card's
 machine has no JAX).  Every import statement is read with ``ast``, those
 inside functions too."""
 
@@ -10,8 +10,10 @@ import pytest
 
 ROOT = Path(__file__).parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "graph_hscn_tpu")
+# tests/torch_dist.py runs the edge-partition tests' gloo ranks, which
+# load the port alone.
 SOURCES = sorted((ROOT / "graph_hscn_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist.py"]
 
 
 def imported_modules(source: str) -> list[str]:
@@ -33,6 +35,9 @@ def forbidden(module: str) -> bool:
 def test_sources_are_found():
     assert len(SOURCES) > 40
     assert ROOT / "graph_hscn_tpu_torch" / "runner.py" in SOURCES
+    for name in ("mesh", "edge_partition", "sharded_gcn"):
+        assert (ROOT / "graph_hscn_tpu_torch" / "parallel"
+                / f"{name}.py") in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,

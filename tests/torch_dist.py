@@ -1,0 +1,219 @@
+"""Run a function of this module on D gloo ranks, one process each, for
+the port's edge-partition tests (tests/test_torch_edge_partition.py,
+tests/test_torch_sharded_gcn.py, tests/test_torch_sharded_gat.py).
+
+    outs = spawn("sharded_model", world=4, args={...}, tmp=tmp_path)
+
+Each rank is ``python tests/torch_dist.py <function> <rank> <world>
+<dir>``: one torch thread, a gloo group on a ``FileStore`` in ``dir``,
+``<function>(rank, world, **args)`` (the arguments pickled by the parent),
+its returned dict pickled back.  The parent waits at most ``timeout``
+seconds, then kills every rank and fails.  This module imports torch and
+the port only, never JAX: the ranks do not load it.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def spawn(fn: str, world: int, args: dict, tmp: Path,
+          timeout: float = 120.0) -> list[dict]:
+    """``fn(rank, world, **args)`` on ``world`` gloo ranks; returns each
+    rank's result, in rank order."""
+    tmp = Path(tmp) / f"{fn}-{world}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    with open(tmp / "args.pkl", "wb") as f:
+        pickle.dump(args, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(key, None)
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, fn, str(rank), str(world), str(tmp)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise AssertionError(f"{fn} on {world} ranks: no end within "
+                             f"{timeout} s")
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{fn} rank {rank} of {world} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    outs = []
+    for rank in range(world):
+        with open(tmp / f"out{rank}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def _main() -> None:
+    import torch.distributed as dist
+    fn, rank, world, tmp = (sys.argv[1], int(sys.argv[2]),
+                            int(sys.argv[3]), Path(sys.argv[4]))
+    torch.set_num_threads(1)
+    with open(tmp / "args.pkl", "rb") as f:
+        args = pickle.load(f)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp / "store"), world), rank=rank, world_size=world)
+    try:
+        out = globals()[fn](rank, world, **args)
+    finally:
+        dist.destroy_process_group()
+    with open(tmp / f"out{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+# ---- the ranks' functions (torch and the port only) ----
+
+def _mesh(rank: int, world: int):
+    import torch.distributed as dist
+
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(("data",), (world,), "cpu")
+    assert (mesh.rank, mesh.world_size) == (rank, dist.get_world_size())
+    return mesh
+
+
+def spmm_programs(rank: int, world: int, x, senders, receivers, edge_mask):
+    """The three sharded SpMM programs on this rank's block of ``x``."""
+    from graph_hscn_tpu_torch.parallel import edge_partition as ep
+    n = x.shape[0]
+    plan = ep.plan_halo_exchange(senders, receivers, edge_mask, n, world)
+    t = {k: torch.from_numpy(np.asarray(v[rank])).long()
+         if v.dtype != bool else torch.from_numpy(v[rank])
+         for k, v in plan.items() if isinstance(v, np.ndarray)}
+    xb = torch.from_numpy(ep.rank_block(x, rank, world))
+    snd_d, rcv_d, m_d, _, _ = ep.partition_edges_by_receiver(
+        senders, receivers, edge_mask, n, world)
+    send = t["send_idx"].reshape(-1)
+    return {
+        "v1": ep.make_sharded_spmm()(
+            xb, torch.from_numpy(snd_d[rank]).long(),
+            torch.from_numpy(rcv_d[rank]).long(),
+            torch.from_numpy(m_d[rank])).numpy(),
+        "v2": ep.make_sharded_spmm_halo()(
+            xb, send, t["snd_remap"], t["rcv_local"], t["mask"]).numpy(),
+        "v3": ep.make_sharded_spmm_overlap()(
+            xb, send, t["snd_loc"], t["rcv_loc"], t["mask_loc"],
+            t["snd_hal"], t["rcv_hal"], t["mask_hal"]).numpy(),
+    }
+
+
+def build(conv: str, dims, heads: int, state: dict, dtype=None,
+          dropout: float = 0.0):
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import build_sharded_model
+    model = build_sharded_model(conv, dims, heads=heads, dtype=dtype,
+                                dropout=dropout)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def sharded_model(rank: int, world: int, conv: str, dims, heads: int,
+                  state: dict, batch: dict, steps: int = 5,
+                  lr: float = 0.01, weight_decay: float = 5e-4,
+                  bf16: bool = False, reorder_check: bool = False) -> dict:
+    """The sharded ``conv`` on this rank's block of ``batch`` from the
+    weights ``state`` (JAX's, converted): the logits block with the
+    kernels' route (the local-edge CsrPlan, the kernels' plain versions
+    here) and without it, the summed loss and gradients, and ``steps``
+    AdamW full-batch steps (their losses and the final weights); with
+    ``bf16`` the bfloat16 logits and gradients' finiteness; with
+    ``reorder_check`` the logits block of the locality-reordered batch."""
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
+        gather_logits, loss_and_grads, partition_arrays)
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    mesh = _mesh(rank, world)
+    arrays = [batch[k] for k in ("senders", "receivers", "edge_mask",
+                                 "node_feat", "node_y", "node_mask")]
+    planned = partition_arrays(*arrays, mesh, reorder=False,
+                               use_plan=True).block
+    plain = partition_arrays(*arrays, mesh, reorder=False).block
+    model = build(conv, dims, heads, state)
+    out = {"logits_plan": gather_logits(model, planned).numpy(),
+           "logits_plain": gather_logits(model, plain).numpy()}
+    model.train()
+    out["loss"] = float(loss_and_grads(model, planned))
+    out["grads"] = {k: p.grad.numpy().copy()
+                    for k, p in model.named_parameters()}
+    opt = build_optimizer(model.parameters(), "adamW", lr, weight_decay)
+    losses = []
+    for _ in range(steps):
+        losses.append(float(loss_and_grads(model, planned)))
+        opt.step()
+    out["step_losses"] = losses
+    out["final"] = {k: v.detach().numpy().copy()
+                    for k, v in model.state_dict().items()}
+    if bf16:
+        m16 = build(conv, dims, heads, state, dtype=torch.bfloat16)
+        out["logits_bf16"] = gather_logits(m16, planned).numpy()
+        m16.train()
+        loss16 = loss_and_grads(m16, planned)
+        out["bf16_finite"] = bool(torch.isfinite(loss16)) and all(
+            bool(p.grad.isfinite().all()) for p in m16.parameters())
+    if reorder_check:
+        split = partition_arrays(*arrays, mesh, reorder=True, use_plan=True)
+        out["logits_reordered"] = gather_logits(
+            build(conv, dims, heads, state), split.block).numpy()
+        out["perm"] = split.perm
+    return out
+
+
+def use_init(state: dict, setattr=setattr) -> None:
+    """The port's edge-partitioned fits start from ``state`` (a
+    state_dict of numpy arrays: JAX's init, converted): ``setattr``
+    replaces ``sharded_gcn.build_sharded_model`` (pass pytest's
+    ``monkeypatch.setattr`` to have it restored)."""
+    from graph_hscn_tpu_torch.parallel import sharded_gcn as psg
+    real = psg.build_sharded_model
+
+    def build(*args, **kwargs):
+        model = real(*args, **kwargs)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+        return model
+
+    setattr(psg, "build_sharded_model", build)
+
+
+def run_cli(rank: int, world: int, raw: dict, predict: str,
+            state: dict | None = None) -> dict:
+    """``run_experiment`` then ``run_eval("best", predict_out=predict)``
+    of the raw config on the CPU over this group (from ``state`` where
+    given, :func:`use_init`): the history, the best val loss, the eval
+    results, the plans and the train steps."""
+    from graph_hscn_tpu_torch.config.config import parse_config
+    from graph_hscn_tpu_torch.runner import run_eval, run_experiment
+    if state is not None:
+        use_init(state)
+    cfg = parse_config(raw)
+    result = run_experiment(cfg, device="cpu")
+    evals = run_eval(cfg, "best", device="cpu", predict_out=predict)
+    return {"history": result.history, "best": result.best_val_loss,
+            "eval": evals, "partition": result.partition,
+            "steps": result.num_train_steps}
+
+
+if __name__ == "__main__":
+    _main()
