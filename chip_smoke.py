@@ -62,7 +62,10 @@ Phases; any failure exits non-zero:
                  csr_spmm forward and transpose at F=64 with the block's
                  GCN weights, spmm_mh forward and transpose and sddmm_mh
                  at H=4, C=16 and 21, float32, each against its plain
-                 version (1e-5*max|ref|), timed as above.
+                 version (1e-5*max|ref|), timed as above; segment_reduce
+                 receiver and sender side at the GatedGCN config's block
+                 (F=64), and csr_spmm forward and transpose at the HSCN
+                 config's (F=64, the ll GCN's weights).
                Device times: CUDA events over calls queued behind a device
                sleep (at most 256 launches queued), or for a call of more
                launches the profiler's summed device time (time_ms).
@@ -172,7 +175,17 @@ Phases; any failure exits non-zero:
                and gradients 1e-4*max|ref|, the CPU's gradient pass on the
                card's ReLU and leaky-ReLU decisions: KinkPins; at most
                1e-5 of them may differ); [resume] and [eval] of the GCN
-               one, and its predict export in a subprocess.
+               one, and its predict export in a subprocess.  Likewise
+               configs/GatedGCN/voc_superpixels_GatedGCN_edge_partition.yaml
+               at mesh.shape [1] (20 segment_reduce a train step, 8 an
+               eval forward), configs/GPS/voc_superpixels_GPS.yaml with
+               mesh.edge_partition on at 64 graphs (ring attention is
+               O(N_b^2); no kernel) and
+               configs/HSCN/voc_superpixels_HSCN_edge_partition.yaml as
+               shipped (shape [-1], 5 clustering epochs: 6 csr_spmm a train
+               step, 3 an eval forward, none while clustering; the card
+               against the CPU with the card's clusters, and the SCN's
+               losses), with [resume] and [eval] of the HSCN one.
 A [time] line gives the script's wall time.  The last three lines are the
 {"kernels": [...]} record, nvidia-smi's line, and {"ok": true, "device":
 {...}}.
@@ -226,8 +239,15 @@ TRAINABLE_PE = {"compat.frozen_random_signnet": False}
 # as shipped; GIN by the GCN config's conv_type.
 GCN_EP = REPO / "configs" / "GCN" / "voc_superpixels_GCN_edge_partition.yaml"
 GAT_EP = REPO / "configs" / "GAT" / "voc_superpixels_GAT_edge_partition.yaml"
+GATED_EP = (REPO / "configs" / "GatedGCN"
+            / "voc_superpixels_GatedGCN_edge_partition.yaml")
+HSCN_EP = REPO / "configs" / "HSCN" / "voc_superpixels_HSCN_edge_partition.yaml"
 ONE_RANK = {"mesh.shape": [1]}
 GIN_EP = {"mesh.shape": [1], "mpnn.conv_type": "gin"}
+# The VOC GPS config on the edge-partitioned route: ring attention costs
+# O(N_b^2), so 64 graphs (N_b ~ 25k) instead of 512; the widths as shipped.
+GPS_EP = {"mesh.shape": [1], "mesh.edge_partition": True,
+          "data.num_graphs": 64}
 VOC_CLASSES = 21
 # Checkpoints and the predict export of [resume] and [eval]: inside the
 # checkout, in a directory git ignores.
@@ -844,6 +864,70 @@ def phase_gat_kernels():
     ]
 
 
+def segment_reduce_case(tag: str, label: str, msgs, rp, order,
+                        rows: int) -> dict:
+    """segment_reduce (B5) of ``msgs`` [E, F] by the row pointers ``rp``
+    (``order``: the rows taken in it, the sender side) against its plain
+    version (1e-5 * max|ref| in float32, 1e-4 in bfloat16); kernel, plain
+    version and library call (torch.segment_reduce on the rows laid out
+    beforehand, float32) timed cold (``rotating``), the kernel warm too,
+    beside the bound of ``rows`` real rows.  Prints one line; returns the
+    case's record with its output (``out``)."""
+    import torch
+
+    from graph_hscn_tpu_torch.ops.cuda.segment_reduce_kernel import (
+        segment_reduce, segment_reduce_plain)
+
+    n, f = rp.numel() - 1, msgs.shape[1]
+    esize = msgs.element_size()
+    f32 = msgs.dtype == torch.float32
+    out = segment_reduce(msgs, rp, order)
+    ref = segment_reduce_plain(msgs, rp, order)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = (1e-5 if f32 else 1e-4) * max(float(ref.abs().max()), 1e-6)
+    if not out.isfinite().all() or err > tol:
+        fail(f"segment_reduce {tag} {label} {msgs.dtype}: max |err| "
+             f"{err:.3e} > tolerance {tol:.3e}")
+    lib_ms, why = None, "float32 only"
+    if f32:
+        laid = (msgs[:rows] if order is None
+                else msgs.index_select(0, order[:rows]))
+
+        def lib(laid, offsets):
+            return torch.segment_reduce(laid, "sum", offsets=offsets)
+
+        try:
+            lib_err = float((lib(laid, rp.long()) - ref).abs().max())
+        except (RuntimeError, NotImplementedError) as exc:
+            why = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+        else:
+            if lib_err > tol:
+                fail(f"segment_reduce {tag} {label} library call: max |err| "
+                     f"{lib_err:.3e} > tolerance {tol:.3e}")
+            lib_ms, why = library_ms(rotating(lib, laid, rp.long()))
+    nbytes = (rows * f * esize + (n + 1) * 4 + n * f * 4
+              + (rows * 8 if order is not None else 0))
+    b_ms, b_by = bound_ms(nbytes, 1.0 * rows * f)
+    # Cold: inputs from HBM (the bound's premise); warm: the same inputs
+    # call after call, left in the L2 by the previous one.
+    k_ms, k_host = time_ms(rotating(segment_reduce, msgs, rp, order))
+    warm_ms, _ = time_ms(lambda: segment_reduce(msgs, rp, order))
+    p_ms, _ = time_ms(rotating(segment_reduce_plain, msgs, rp, order))
+    dtype = str(msgs.dtype).replace("torch.", "")
+    print(f"{tag} segment_reduce {label:10s} F={f} {dtype:8s} err "
+          f"{err:.2e} (tol {tol:.1e}) device, cold L2: kernel "
+          f"{k_ms * 1e3:7.2f} us  plain {p_ms * 1e3:7.2f} us  bound "
+          f"{b_ms * 1e3:5.2f} us ({b_by})  library "
+          + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
+             else f"n/a ({why})")
+          + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
+          f"{k_host * 1e3:6.2f} us", flush=True)
+    return dict(label=label, dtype=dtype, max_abs_err=err, ms=k_ms,
+                plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, out=out)
+
+
 def phase_gatedgcn_kernels():
     """segment_reduce (B5) at the VOC GatedGCN batch shape (F = 64, the
     layers' width), against its plain version: float32 and bfloat16 rows,
@@ -857,8 +941,6 @@ def phase_gatedgcn_kernels():
 
     from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.data.pipeline import DataModule
-    from graph_hscn_tpu_torch.ops.cuda.segment_reduce_kernel import (
-        segment_reduce, segment_reduce_plain)
 
     cfg = load_config(VOC_GATED)
     dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
@@ -879,63 +961,17 @@ def phase_gatedgcn_kernels():
     cases, worst = [], 0.0
     for dtype in (torch.float32, torch.bfloat16):
         msgs = torch.randn(e, f, device="cuda", generator=gen).to(dtype)
-        esize = msgs.element_size()
-        f32 = dtype == torch.float32
         for label, rp, order, rows in (
                 ("receiver", p.row_ptr, None, nnz),
                 ("sender", p.t_row_ptr, p.t_order, nnz),
                 ("empty rows", sparse_ptr, None, nnz_sparse)):
-            out = segment_reduce(msgs, rp, order)
-            ref = segment_reduce_plain(msgs, rp, order)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            tol = (1e-5 if f32 else 1e-4) * max(float(ref.abs().max()), 1e-6)
-            if not out.isfinite().all() or err > tol:
-                fail(f"segment_reduce {label} {dtype}: max |err| {err:.3e} "
-                     f"> tolerance {tol:.3e}")
-            if label == "empty rows" and out[counts == 0].any():
+            case = segment_reduce_case("[gatedgcn]", label, msgs, rp, order,
+                                       rows)
+            if label == "empty rows" and case["out"][counts == 0].any():
                 fail("segment_reduce: an empty row is not 0")
-            worst = max(worst, err)
-            lib_ms, why = None, "float32 only"
-            if f32:
-                # The library call on the rows laid out beforehand.
-                laid = (msgs[:rows] if order is None
-                        else msgs.index_select(0, order[:rows]))
-
-                def lib(laid, offsets):
-                    return torch.segment_reduce(laid, "sum", offsets=offsets)
-
-                try:
-                    lib_err = float((lib(laid, rp.long()) - ref).abs().max())
-                except (RuntimeError, NotImplementedError) as exc:
-                    why = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
-                else:
-                    if lib_err > tol:
-                        fail(f"segment_reduce {label} library call: max "
-                             f"|err| {lib_err:.3e} > tolerance {tol:.3e}")
-                    lib_ms, why = library_ms(rotating(lib, laid, rp.long()))
-            nbytes = (rows * f * esize + (n + 1) * 4 + n * f * 4
-                      + (rows * 8 if order is not None else 0))
-            b_ms, b_by = bound_ms(nbytes, 1.0 * rows * f)
-            # Cold: inputs from HBM (the bound's premise); warm: the same
-            # inputs call after call, left in the L2 by the previous one.
-            k_ms, k_host = time_ms(rotating(segment_reduce, msgs, rp, order))
-            warm_ms, _ = time_ms(lambda m=msgs, rp=rp, o=order:
-                                 segment_reduce(m, rp, o))
-            p_ms, _ = time_ms(rotating(segment_reduce_plain, msgs, rp, order))
-            case = dict(label=label, dtype=str(dtype).replace("torch.", ""),
-                        max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            del case["out"]
+            worst = max(worst, case["max_abs_err"])
             cases.append(case)
-            print(f"[gatedgcn] segment_reduce {label:10s} F={f} "
-                  f"{case['dtype']:8s} err {err:.2e} (tol {tol:.1e}) device, "
-                  f"cold L2: kernel {k_ms * 1e3:7.2f} us  plain "
-                  f"{p_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us "
-                  f"({b_by})  library "
-                  + (f"{lib_ms * 1e3:7.2f} us" if lib_ms is not None
-                     else f"n/a ({why})")
-                  + f"; kernel warm L2 {warm_ms * 1e3:7.2f} us; host a call "
-                  f"{k_host * 1e3:6.2f} us", flush=True)
     (record,) = [c for c in cases
                  if (c["label"], c["dtype"]) == ("receiver", "float32")]
     return [{"name": "segment_reduce", "route": "cuda",
@@ -1197,11 +1233,13 @@ def load_with(path: Path, changes: dict | None = None):
 
 
 def train_run(path: Path, expected, label: str = "train",
-              changes: dict | None = None) -> tuple:
+              changes: dict | None = None,
+              cluster_epochs: int | None = EPOCHS) -> tuple:
     """One path through run_experiment on the card for EPOCHS epochs, every
     kernel's launch count from that run alone.  ``expected(cfg, steps,
     evals)`` gives the counts the path must show (a kernel it leaves out:
-    0); ``changes`` are set on the config (``load_with``).  Returns
+    0); ``changes`` are set on the config (``load_with``); an HSCN's
+    clustering runs ``cluster_epochs`` epochs (None: as shipped).  Returns
     ({kernel: launches}, the FitResult, the median step ms,
     max_memory_allocated above what was allocated at the start)."""
     import torch
@@ -1211,8 +1249,8 @@ def train_run(path: Path, expected, label: str = "train",
     cfg = load_with(path, changes)
     cfg.training.epochs = EPOCHS
     cfg.training.eval_period = 1
-    if cfg.hscn is not None:
-        cfg.hscn.cluster_epochs = EPOCHS
+    if cfg.hscn is not None and cluster_epochs is not None:
+        cfg.hscn.cluster_epochs = cluster_epochs
     # What earlier runs left allocated (their garbage collected): the
     # baseline of this run's peak.
     gc.collect()
@@ -1234,7 +1272,8 @@ def train_run(path: Path, expected, label: str = "train",
         cl = result.cluster_losses
         print(f"{tag}: clustering {len(cl)} epochs, losses "
               f"{cl}; launches while clustering {clustering}", flush=True)
-        if len(cl) != EPOCHS or not all(math.isfinite(v) for v in cl):
+        if (len(cl) != cfg.hscn.cluster_epochs
+                or not all(math.isfinite(v) for v in cl)):
             fail(f"{path.name}: clustering losses {cl}")
         if not clustering or any(clustering.values()):
             fail(f"{path.name}: kernel launches while clustering: "
@@ -1324,11 +1363,15 @@ def capture_run(path: Path, expected, changes: dict | None = None) -> dict:
 
 @contextlib.contextmanager
 def launches_while_clustering(kernels, into: dict):
-    """Within the block, the HSCN pipeline's clustering trainers add each
-    kernel's launches during their run to ``into``."""
+    """Within the block, the HSCN pipeline's clustering trainers (and the
+    edge-partitioned pipeline's SCN steps) add each kernel's launches
+    during their run to ``into``."""
     from graph_hscn_tpu_torch import hscn_pipeline
-    names = ("train_clustering", "train_clustering_device")
-    originals = {n: getattr(hscn_pipeline, n) for n in names}
+    from graph_hscn_tpu_torch.parallel import sharded_scn
+    names = ((hscn_pipeline, "train_clustering"),
+             (hscn_pipeline, "train_clustering_device"),
+             (sharded_scn, "scn_loss_and_grads"))
+    originals = {(m, n): getattr(m, n) for m, n in names}
 
     def counted(fn):
         def run(*args, **kwargs):
@@ -1340,13 +1383,13 @@ def launches_while_clustering(kernels, into: dict):
             return out
         return run
 
-    for n, fn in originals.items():
-        setattr(hscn_pipeline, n, counted(fn))
+    for (m, n), fn in originals.items():
+        setattr(m, n, counted(fn))
     try:
         yield
     finally:
-        for n, fn in originals.items():
-            setattr(hscn_pipeline, n, fn)
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
 
 
 def voc_hscn_launches(cfg, steps, evals):
@@ -1517,6 +1560,9 @@ GCN_FOCUS = {"csr_spmm kernel": ("csr_spmm_kernel",),
 GAT_FOCUS = {"spmm_mh + sddmm_mh kernels": ("spmm_mh_kernel",
                                             "sddmm_mh_kernel"),
              "gathers (index_select, indexing)": ("indexSelect", "gather")}
+GATED_FOCUS = {"segment_reduce kernel": ("segment_reduce_kernel",),
+               "gathers and scatters (index_select, index_add_)": (
+                   "indexSelect", "gather", "index_add", "indexFuncLarge")}
 
 
 def phase_profile(path: Path, label: str, focus: dict | None = None,
@@ -2776,10 +2822,22 @@ def ep_launches(cfg, steps, evals):
     WIDTH_GATE) launches, GCN, csr_spmm forward and transpose in a train
     step and forward in an eval forward; GAT, spmm_mh forward and dx and
     sddmm_mh (d alpha) in a train step, spmm_mh forward in an eval
-    forward; GIN nothing.  ``evals`` counts the eval forwards (val, test,
-    and the train metric's on an eval epoch)."""
+    forward; GatedGCN (every layer hidden wide), segment_reduce 2 a layer
+    forward (the local sums) and 3 backward (the local gathers),
+    parallel/sharded_gatedgcn.py; GIN and GPS nothing; the HSCN pipeline,
+    csr_spmm forward and transpose in each layer's ll GCN (hidden wide) in
+    a train step, forward in an eval forward (``voc_hscn_launches``; its
+    SCN stack aggregates the 14 input features, below the gate).
+    ``evals`` counts the eval forwards (val, test, and the train metric's
+    on an eval epoch)."""
     from graph_hscn_tpu_torch.parallel.sharded_gcn import WIDTH_GATE
+    if cfg.hscn is not None:
+        return voc_hscn_launches(cfg, steps, evals)
     conv = cfg.mpnn.conv_type.lower()
+    if conv == "gatedgcn":
+        k = (cfg.mpnn.num_layers
+             if cfg.mpnn.hidden_channels >= WIDTH_GATE else 0)
+        return {"segment_reduce": 5 * k * steps + 2 * k * evals}
     heads = cfg.mpnn.num_heads if conv == "gat" else 1
     widths = ([cfg.mpnn.hidden_channels] * (cfg.mpnn.num_layers - 1)
               + [heads * VOC_CLASSES])
@@ -2791,10 +2849,19 @@ def ep_launches(cfg, steps, evals):
     return {}
 
 
+def ep_split(dm, name: str, mesh, cfg, use_plan: bool):
+    """fit_edge_partitioned's packing of split ``name``: its block with
+    the graph ids a GPS needs."""
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import partition_split
+    conv = cfg.mpnn.conv_type.lower()
+    return partition_split(dm.split(name), mesh, cfg.mesh.locality_reorder,
+                           use_plan, edges=True, graph_ids=conv == "gps")
+
+
 def ep_setup(path: Path, changes: dict, device):
     """(cfg, dm, conv, the sharded model from seed 0 on ``device``, the
     mesh) of an edge-partition config on a 1-rank mesh, within a process
-    group."""
+    group (no dropout: the card and the CPU draw other bits)."""
     import torch
 
     from graph_hscn_tpu_torch.data.pipeline import DataModule
@@ -2810,7 +2877,9 @@ def ep_setup(path: Path, changes: dict, device):
             + [cfg.mpnn.hidden_channels] * (cfg.mpnn.num_layers - 1)
             + [dm.num_classes])
     model = build_sharded_model(conv, dims, heads=cfg.mpnn.num_heads,
-                                generator=torch.Generator().manual_seed(0))
+                                generator=torch.Generator().manual_seed(0),
+                                local_conv=cfg.mpnn.gps_local_conv.lower(),
+                                hidden=cfg.mpnn.hidden_channels)
     return cfg, dm, conv, model.to(device), make_mesh(("data",), (1,),
                                                       device)
 
@@ -2861,10 +2930,44 @@ def phase_edge_partition_kernels() -> None:
                   f" {f}] float32 rows by the block's {snd.numel()} senders: "
                   f"{g_ms * 1e3:.2f} us cold (bound {b_ms * 1e3:.2f} us, "
                   "bytes)", flush=True)
+        # segment_reduce (B5) at the GatedGCN config's train block: the
+        # local sums (receiver side) and the local gathers' backwards
+        # (sender side, t_order), F = hidden, float32.
+        gcfg = load_with(GATED_EP, ONE_RANK)
+        gdm = DataModule.from_config(gcfg.data,
+                                     pad_safety=gcfg.runtime.pad_safety)
+        mesh = make_mesh(("data",), (1,), device)
+        split = ep_split(gdm, "train", mesh, gcfg, True)
+        p, i = split.block.csr, split.info
+        print(f"[edge_partition] GatedGCN block: N_b={i['block_rows']} rows,"
+              f" {p.num_edges} local edges ({p.col.numel()} slots), "
+              f"F={gcfg.mpnn.hidden_channels}", flush=True)
+        msgs = torch.randn(p.col.numel(), gcfg.mpnn.hidden_channels,
+                           device="cuda", generator=gen)
+        for side, rp, order in (("receiver", p.row_ptr, None),
+                                ("sender", p.t_row_ptr, p.t_order)):
+            segment_reduce_case("[edge_partition] GatedGCN block", side,
+                                msgs, rp, order, p.num_edges)
+        del split, msgs
+        # csr_spmm (B1) at the HSCN config's train block: the ll GCN's
+        # weights (in-degree normalisation, no self loops), F = hidden.
+        hcfg = load_with(HSCN_EP)
+        hdm = DataModule.from_config(hcfg.data,
+                                     pad_safety=hcfg.runtime.pad_safety)
+        split = partition_split(hdm.split("train"), mesh,
+                                hcfg.mesh.locality_reorder, use_plan=True)
+        print(f"[edge_partition] HSCN block: N_b="
+              f"{split.info['block_rows']} rows, {split.block.csr.num_edges}"
+              " local edges", flush=True)
+        check_spmm_batch("edge-partition HSCN block", split.block.csr,
+                         split.block.gcn_norm(self_loops=False)[0],
+                         [("forward", hcfg.hscn.hidden_channels),
+                          ("transpose", hcfg.hscn.hidden_channels)])
 
 
 def phase_edge_partition(path: Path, changes: dict, label: str,
-                         focus: dict | None = None) -> None:
+                         focus: dict | None = None, profiled: int = 6,
+                         steady: int = 10) -> None:
     """[edge_partition] An edge-partition config on a 1-rank NCCL mesh at
     full width: its full-batch train step (``loss_and_grads``, the
     all_reduce, AdamW) profiled over the train split's block (device busy
@@ -2872,20 +2975,19 @@ def phase_edge_partition(path: Path, changes: dict, label: str,
     on the val split, card (the kernels) against the CPU (a 1-rank gloo
     mesh, plain versions): logits within 1e-5 * max|ref|, the loss and
     every gradient within 1e-4 * max|ref|, the gradients on the card's
-    activation pattern (``KinkPins``)."""
+    activation pattern (``KinkPins``).  ``profiled`` and ``steady``: the
+    steps profiled and then timed."""
     import torch
 
     from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
-    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
-        KERNEL_CONVS, loss_and_grads, partition_split)
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (KERNEL_CONVS,
+                                                           loss_and_grads)
     from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
     outs = {}
     with process_group(torch.device("cuda")) as device:
         cfg, dm, conv, model, mesh = ep_setup(path, changes, device)
-        reorder = cfg.mesh.locality_reorder
-        train = partition_split(dm.split("train"), mesh, reorder,
-                                conv in KERNEL_CONVS)
+        train = ep_split(dm, "train", mesh, cfg, conv in KERNEL_CONVS)
         opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
                               cfg.optim.lr, cfg.optim.weight_decay)
 
@@ -2894,33 +2996,147 @@ def phase_edge_partition(path: Path, changes: dict, label: str,
             loss_and_grads(model, train.block)
             opt.step()
 
-        profile_steps(f"edge-partition {label}", step, lambda i: None,
-                      focus={**(focus or {}),
-                             "NCCL kernels and copies (halo all_to_all, "
-                             "all_reduce)": ("nccl", "Memcpy")})
-        ms = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(None)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"[edge_partition] {label} steady train step ms (synchronised "
-              f"host clock, 10 steps after the profiled ones): median "
-              f"{statistics.median(ms):.3f}, min {min(ms):.3f}, max "
-              f"{max(ms):.3f}", flush=True)
+        ep_step_times(label, step, focus, profiled, steady)
         del train
-        val = partition_split(dm.split("val"), mesh, reorder,
-                              conv in KERNEL_CONVS)
+        val = ep_split(dm, "val", mesh, cfg, conv in KERNEL_CONVS)
         pins = KinkPins()
         outs["cuda"] = reference_outputs(model, val.block, pins.record())
         state = {k: v.cpu() for k, v in model.state_dict().items()}
     with process_group(torch.device("cpu")) as device:
         model = model.cpu()
         model.load_state_dict(state)
-        val = partition_split(dm.split("val"), make_mesh(("data",), (1,),
-                                                         device), reorder)
+        val = ep_split(dm, "val", make_mesh(("data",), (1,), device), cfg,
+                       False)
         outs["cpu"] = reference_outputs(model, val.block, pins.replay())
+    card_against_cpu(label, outs, pins, val.info,
+                     [name for name, _ in model.named_parameters()])
+
+
+def ep_step_times(label: str, step, focus: dict | None, profiled: int,
+                  steady: int) -> None:
+    """An edge-partitioned train ``step`` profiled (``profile_steps``:
+    busy time, idle share, ``focus``'s groups and NCCL's) over
+    ``profiled`` steps, then ``steady`` steps on the synchronised host
+    clock."""
+    import torch
+
+    profile_steps(f"edge-partition {label}", step, lambda i: None,
+                  steps=profiled,
+                  focus={**(focus or {}),
+                         "NCCL kernels and copies (halo all_to_all, "
+                         "all_reduce)": ("nccl", "Memcpy")})
+    ms = []
+    for _ in range(steady):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[edge_partition] {label} steady train step ms (synchronised "
+          f"host clock, {steady} steps after the profiled ones): median "
+          f"{statistics.median(ms):.3f}, min {min(ms):.3f}, max "
+          f"{max(ms):.3f}", flush=True)
+
+
+def phase_edge_partition_hscn(profiled: int = 6, steady: int = 10) -> None:
+    """[edge_partition] The HSCN edge-partition config as shipped on a
+    1-rank NCCL mesh at full width: the sharded SCN (seed 0) assigns the
+    train and val splits' clusters; the sharded HSCN's full-batch train
+    step profiled over the train block (``ep_step_times``); then on the
+    val split the card against the CPU (1-rank gloo, plain versions): the
+    SCN's MinCUT and orthogonality losses within 1e-5 relative, and the
+    HSCN's logits, loss and gradients with the card's clusters as
+    :func:`card_against_cpu` holds them (``KinkPins``)."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (loss_and_grads,
+                                                           partition_split)
+    from graph_hscn_tpu_torch.parallel.sharded_hscn import ShardedHSCN
+    from graph_hscn_tpu_torch.parallel.sharded_scn import ShardedSCN
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    cfg = load_with(HSCN_EP)
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    h, gen = cfg.hscn, torch.Generator().manual_seed(0)
+    scn = ShardedSCN(dm.num_features, h.mp_units, h.num_clusters,
+                     h.activation, generator=gen)
+    model = ShardedHSCN(
+        dm.num_features, h.hidden_channels, dm.num_classes, h.num_layers,
+        h.num_clusters, heads=h.num_heads,
+        virtual_feedback=h.virtual_feedback,
+        vv_pattern=("triangular" if cfg.compat.vv_triangular_pattern
+                    else "clique"), generator=gen)
+
+    def split(name, mesh, use_plan):
+        return partition_split(dm.split(name), mesh,
+                               cfg.mesh.locality_reorder, use_plan,
+                               outdeg=True)
+
+    outs, losses = {}, {}
+    with process_group(torch.device("cuda")) as device:
+        mesh = make_mesh(("data",), (1,), device)
+        scn, model = scn.to(device), model.to(device)
+        train = split("train", mesh, True)
+        clusters = scn.assign(train.block)
+        opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                              cfg.optim.lr, cfg.optim.weight_decay)
+
+        def step(_):
+            model.train()
+            loss_and_grads(model, train.block, clusters)
+            opt.step()
+
+        ep_step_times("HSCN", step, GCN_FOCUS, profiled, steady)
+        del train
+        val = split("val", mesh, True)
+        with torch.no_grad():
+            losses["cuda"] = [float(t) for t in scn.losses(val.block)]
+        clusters = scn.assign(val.block)
+        pins = KinkPins()
+        outs["cuda"] = reference_outputs(model, val.block, pins.record(),
+                                         clusters)
+        states = [{k: v.cpu() for k, v in m.state_dict().items()}
+                  for m in (scn, model)]
+    with process_group(torch.device("cpu")) as device:
+        for m, state in zip((scn.cpu(), model.cpu()), states):
+            m.load_state_dict(state)
+        val = split("val", make_mesh(("data",), (1,), device), False)
+        with torch.no_grad():
+            losses["cpu"] = [float(t) for t in scn.losses(val.block)]
+        outs["cpu"] = reference_outputs(model, val.block, pins.replay(),
+                                        clusters.cpu())
+    err = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"[reference] edge-partition HSCN, val split: the SCN's MinCUT and "
+          f"orthogonality losses {losses['cuda']} on the card, "
+          f"{losses['cpu']} on the CPU: max relative difference {err:.2e} "
+          "(limit 1e-5)", flush=True)
+    if not err <= 1e-5:
+        fail("edge-partition HSCN: the SCN's losses differ between the card "
+             "and the CPU")
+    card_against_cpu("HSCN", outs, pins, val.info,
+                     [name for name, _ in model.named_parameters()])
+
+
+# Parameters whose gradient is zero in exact arithmetic: the attention's
+# key bias shifts all of a query's scores alike (GPS), so its gradient is
+# rounding alone, held against the largest gradient of all (the CPU
+# tests' criterion, tests/test_torch_gps.py).
+EXACT_ZERO_GRADS = ("attn.k.bias",)
+
+
+def card_against_cpu(label: str, outs: dict, pins, info: dict,
+                     names: list) -> None:
+    """[reference] ``outs["cuda"]`` against ``outs["cpu"]`` (logits, loss,
+    every gradient: :func:`reference_outputs`, the parameters ``names``):
+    the logits within 1e-5 * max|ref|, the rest within 1e-4 * max|ref|
+    (``EXACT_ZERO_GRADS``: of the largest gradient), and at most 1e-5 of
+    the activation decisions flipped (``pins``)."""
+    top = max(float(g.abs().max()) for g in outs["cpu"][2:])
     if pins.flips > 1e-5 * pins.count:
         fail(f"edge-partition {label}: {pins.flips} of {pins.count} "
              "activation decisions differ between the card and the CPU "
@@ -2928,14 +3144,16 @@ def phase_edge_partition(path: Path, changes: dict, label: str,
     worst = []
     for i, (ref, got) in enumerate(zip(outs["cpu"], outs["cuda"])):
         scale = max(float(ref.abs().max()), 1e-6)
+        if i >= 2 and names[i - 2].endswith(EXACT_ZERO_GRADS):
+            scale = top
         err = float((got.cpu() - ref).abs().max())
         tol = (1e-5 if i == 0 else 1e-4) * scale
         if not got.isfinite().all() or err > tol:
             fail(f"edge-partition {label} card vs CPU, output {i}: max "
                  f"|err| {err:.3e} > {tol:.3e}")
         worst.append(err / scale)
-    print(f"[reference] edge-partition {label}, val split (N={val.info['rows']}"
-          f", {val.info['edges']} edges): logits max |err| / max|ref| "
+    print(f"[reference] edge-partition {label}, val split (N={info['rows']}"
+          f", {info['edges']} edges): logits max |err| / max|ref| "
           f"{worst[0]:.2e} (limit 1e-5); loss and {len(worst) - 2} "
           f"gradients worst {max(worst[1:]):.2e} (limit 1e-4; {pins.flips} "
           f"of {pins.count} activation decisions differed on the CPU and "
@@ -2944,8 +3162,10 @@ def phase_edge_partition(path: Path, changes: dict, label: str,
 
 class KinkPins:
     """The ReLU and leaky-ReLU decisions (``x > 0``, ``x >= 0``) of the
-    sharded models (``parallel/sharded_gcn.py``), recorded on one run and
-    replayed, in the same order, on another.
+    sharded models (``parallel/sharded_gcn.py``, ``sharded_gatedgcn.py``:
+    the ReLUs after LayerNorm; ``sharded_gps.py``: the local convs' ReLUs;
+    ``sharded_hscn.py``: its ReLUs and the lv leaky ReLU), recorded on one
+    run and replayed, in the same order, on another.
 
     The gradient of a piecewise-linear network jumps where a
     pre-activation crosses 0.  Of the ~2e7 decisions of a val-split
@@ -3001,7 +3221,9 @@ class KinkPins:
         import torch.nn.functional as F
 
         from graph_hscn_tpu_torch.models.layers import GAT_NEGATIVE_SLOPE
-        from graph_hscn_tpu_torch.parallel import sharded_gcn
+        from graph_hscn_tpu_torch.parallel import (sharded_gatedgcn,
+                                                   sharded_gcn, sharded_gps,
+                                                   sharded_hscn)
 
         def relu(x):
             return torch.where(decide(x > 0), x, 0.0)
@@ -3012,12 +3234,18 @@ class KinkPins:
         functional = types.SimpleNamespace(**{
             k: getattr(F, k) for k in dir(F) if not k.startswith("_")})
         functional.relu = relu
-        saved = sharded_gcn.F, sharded_gcn.leaky_relu
-        sharded_gcn.F, sharded_gcn.leaky_relu = functional, leaky_relu
+        patched = [(m, "F", functional) for m in (
+            sharded_gcn, sharded_gatedgcn, sharded_gps, sharded_hscn)]
+        patched += [(m, "leaky_relu", leaky_relu)
+                    for m in (sharded_gcn, sharded_hscn)]
+        saved = [(m, name, getattr(m, name)) for m, name, _ in patched]
+        for m, name, value in patched:
+            setattr(m, name, value)
         try:
             yield
         finally:
-            sharded_gcn.F, sharded_gcn.leaky_relu = saved
+            for m, name, value in saved:
+                setattr(m, name, value)
 
 
 def kink_study(snapshots: int) -> None:
@@ -3080,15 +3308,17 @@ def kink_study(snapshots: int) -> None:
                       f"{pins.count} decisions differed", flush=True)
 
 
-def reference_outputs(model, blk, pins=None) -> list:
-    """[logits, loss, every gradient] of the sharded model on a block; the
-    gradient pass within ``pins`` (a ``KinkPins`` context) where given."""
+def reference_outputs(model, blk, pins=None, clusters=None) -> list:
+    """[logits, loss, every gradient] of the sharded model on a block (an
+    HSCN with its ``clusters``); the gradient pass within ``pins`` (a
+    ``KinkPins`` context) where given."""
     from graph_hscn_tpu_torch.parallel.sharded_gcn import (gather_logits,
                                                            loss_and_grads)
-    logits = gather_logits(model, blk)
+    args = () if clusters is None else (clusters,)
+    logits = gather_logits(model, blk, *args)
     model.train()
     with pins or contextlib.nullcontext():
-        loss = loss_and_grads(model, blk)
+        loss = loss_and_grads(model, blk, *args)
     return [logits, loss.reshape(1)] + [p.grad.clone()
                                         for p in model.parameters()]
 
@@ -3101,12 +3331,16 @@ def phase_edge_partition_runs() -> dict:
     the kernels' launches of the train, resumed and eval runs."""
     from collections import Counter
     launches = Counter()
-    for path, changes, label, focus in (
-            (GCN_EP, ONE_RANK, "GCN", GCN_FOCUS),
-            (GAT_EP, ONE_RANK, "GAT", GAT_FOCUS),
-            (GCN_EP, GIN_EP, "GIN", None)):
+    for path, changes, label, focus, steps in (
+            (GCN_EP, ONE_RANK, "GCN", GCN_FOCUS, {}),
+            (GAT_EP, ONE_RANK, "GAT", GAT_FOCUS, {}),
+            (GCN_EP, GIN_EP, "GIN", None, {}),
+            (GATED_EP, ONE_RANK, "GatedGCN", GATED_FOCUS, {}),
+            (GPS_VOC, GPS_EP, "GPS", None, {"profiled": 2, "steady": 2}),
+            (HSCN_EP, None, "HSCN", GCN_FOCUS, {})):
+        # The HSCN config as shipped: mesh.shape [-1], 5 clustering epochs.
         got, result = train_run(path, ep_launches, "edge_partition",
-                                changes)[:2]
+                                changes, cluster_epochs=None)[:2]
         launches.update(got)
         for split, i in result.partition.items():
             print(f"[edge_partition] {label} {split}: N_b={i['block_rows']} "
@@ -3114,12 +3348,17 @@ def phase_edge_partition_runs() -> dict:
                   f"{i['local_edges']}, halo {i['halo_edges']}), "
                   f"H={i['halo_width']}, host plan {i['seconds']:.3f} s",
                   flush=True)
-        phase_edge_partition(path, changes, label, focus)
-    resumed, fit, cfg = phase_resume(GCN_EP, ep_launches, "ep_gcn",
-                                     changes=ONE_RANK)
-    launches.update(resumed)
-    launches.update(phase_eval(cfg, fit.best_val_loss, ep_launches,
-                               evals=2))
+        if path == HSCN_EP:
+            phase_edge_partition_hscn()
+        else:
+            phase_edge_partition(path, changes, label, focus, **steps)
+    for path, changes, label in ((GCN_EP, ONE_RANK, "ep_gcn"),
+                                 (HSCN_EP, None, "ep_hscn")):
+        resumed, fit, cfg = phase_resume(path, ep_launches, label,
+                                         changes=changes)
+        launches.update(resumed)
+        launches.update(phase_eval(cfg, fit.best_val_loss, ep_launches,
+                                   evals=2))
     phase_predict(GCN_EP, SCRATCH / "ep_gcn", ONE_RANK)
     return dict(launches)
 

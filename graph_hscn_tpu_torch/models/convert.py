@@ -402,3 +402,68 @@ def sharded_gat_params_from_jax(params) -> dict[str, torch.Tensor]:
     return _sharded_layers(params, {
         "kernel": "weight", "att_src": "att_src", "att_dst": "att_dst",
         "bias": "bias"})
+
+
+_ATTN = {"wq": "q.weight", "wk": "k.weight", "wv": "v.weight",
+         "wo": "o.weight", "bq": "q.bias", "bk": "k.bias", "bv": "v.bias",
+         "bo": "o.bias"}
+
+
+def _tree(params, prefix: str = "", rename: dict | None = None
+          ) -> dict[str, torch.Tensor]:
+    """A JAX sharded model's nested dicts and lists -> the port's dotted
+    names: list items by index, keys through ``rename`` (to "" to drop a
+    level), kernels [in, out] (``kernel``, ``kernel_*``) transposed to
+    weights [out, in] (``weight``, ``weight_*``), the attention's
+    ``wq``/``wk``/``wv`` [H, heads, hd] and ``wo`` [heads, hd, H] as the
+    ``q``/``k``/``v``/``o`` weights [out, in], their biases flattened."""
+    rename = rename or {}
+    items = (enumerate(params) if isinstance(params, (list, tuple))
+             else params.items())
+    state = {}
+    for key, value in items:
+        key = str(key)
+        if isinstance(value, (dict, list, tuple)):
+            name = rename.get(key, key)
+            state.update(_tree(value, f"{prefix}{name}." if name else prefix,
+                               rename))
+            continue
+        value = np.asarray(value, dtype=np.float32)
+        if key in ("wq", "wk", "wv"):
+            value = value.reshape(value.shape[0], -1).T
+        elif key == "wo":
+            value = value.reshape(-1, value.shape[-1]).T
+        elif key in _ATTN:
+            value = value.reshape(-1)
+        elif key.startswith("kernel"):
+            key, value = "weight" + key[len("kernel"):], value.T
+        state[prefix + _ATTN.get(key, key)] = torch.from_numpy(value.copy())
+    return state
+
+
+def sharded_gatedgcn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """``init_sharded_gatedgcn_params``' tree (``enc_x``, ``enc_e``,
+    ``layers`` of A..E, ``ln_x``, ``ln_e``, ``head``) -> the port
+    ShardedGatedGCN's ``state_dict`` (the same names)."""
+    return _tree(params)
+
+
+def sharded_gps_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """``init_sharded_gps_params``' tree -> the port ShardedGPS's
+    ``state_dict``: ``in`` is ``inp``, the attention's ``wq`` .. ``bo``
+    its ``q``/``k``/``v``/``o`` layers, the rest by name."""
+    return _tree(params, rename={"in": "inp"})
+
+
+def sharded_scn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """``init_sharded_scn_params``' tree (``layers`` of ``kernel_rel``,
+    ``kernel_root``, ``bias``; ``head``) -> the port ShardedSCN's
+    ``state_dict`` (``weight_rel``, ``weight_root``)."""
+    return _tree(params)
+
+
+def sharded_hscn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """``init_sharded_hscn_params``' tree (``layers`` of ``ll``, ``lv``,
+    ``vv`` and ``vl``; ``head`` of ``h1``, ``h2``) -> the port
+    ShardedHSCN's ``state_dict`` (the head's layers at the top)."""
+    return _tree(params, rename={"head": ""})

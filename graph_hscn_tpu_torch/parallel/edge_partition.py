@@ -21,7 +21,8 @@ returns a :class:`Halo` whose ``wait`` yields the rank's [D*H, F] halo
 table; its backward is the same exchange of the gradient.  The three
 sharded SpMM programs of JAX (v1 all-gather, v2 targeted halo, v3 halo
 overlapped with the local aggregation) are :func:`make_sharded_spmm`,
-:func:`make_sharded_spmm_halo` and :func:`make_sharded_spmm_overlap`.
+:func:`make_sharded_spmm_halo` and :func:`make_sharded_spmm_overlap`;
+MinCUT pooling's contractions, :func:`make_sharded_mincut_contractions`.
 """
 
 from __future__ import annotations
@@ -376,5 +377,24 @@ def make_sharded_spmm_overlap(group=None):
         msgs_h = torch.where(m_hal[:, None], halo.index_select(0, snd_hal),
                              0.0)
         return out + segment_sum(msgs_h, rcv_hal, nb)
+
+    return per_rank
+
+
+def make_sharded_mincut_contractions(group=None):
+    """f(s_blk [Nb, K], x_blk [Nb, F], snd [Eb] (global ids), rcv_local
+    [Eb], mask [Eb]) -> (S^T X [K, F], S^T A S [K, K]), the same on every
+    rank: MinCUT pooling's contractions as the rank's partial products
+    summed over the ranks, A S from the all-gathered assignments (not
+    differentiable)."""
+
+    def per_rank(s_blk, x_blk, snd, rcv_local, mask):
+        stx = s_blk.t() @ x_blk
+        s_full = all_gather_rows(s_blk, group)
+        msgs = torch.where(mask[:, None], s_full.index_select(0, snd), 0.0)
+        a_s = segment_sum(msgs, rcv_local, s_blk.shape[0])
+        out = torch.cat([stx, s_blk.t() @ a_s], 1)
+        dist.all_reduce(out, group=group)
+        return out[:, :x_blk.shape[1]], out[:, x_blk.shape[1]:]
 
     return per_rank

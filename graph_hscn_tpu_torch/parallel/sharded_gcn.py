@@ -1,5 +1,7 @@
-"""Edge-partitioned full-batch training of GCN, GIN and GAT: the
-counterpart of ``graph_hscn_tpu/parallel/sharded_gcn.py``.
+"""Edge-partitioned full-batch training of GCN, GIN and GAT (and the
+route of GatedGCN, parallel/sharded_gatedgcn.py, and the ring-attention
+GPS, parallel/sharded_gps.py): the counterpart of
+``graph_hscn_tpu/parallel/sharded_gcn.py``.
 
 Each split is packed into ONE padded batch whose contiguous node blocks
 are spread over the ranks of a process group (parallel/edge_partition.py):
@@ -70,7 +72,7 @@ from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 # Below this many columns (H*C for GAT) the local aggregation stays a
 # plain gather and index_add_, as JAX's width gate (sharded_gcn.py:91-93).
 WIDTH_GATE = 64
-KERNEL_CONVS = ("gcn", "gat")
+KERNEL_CONVS = ("gcn", "gat", "gatedgcn")
 
 
 class Block:
@@ -80,13 +82,23 @@ class Block:
     send_idx [D*H], snd/rcv/m_loc [El] (local senders), snd/rcv/m_hal [Eh]
     (senders in the halo table); ``csr``: the local edges' ``CsrPlan``, or
     None where the kernels do not run; ``real_rows``: the split's real
-    rows over every rank (the loss's divisor)."""
+    rows over every rank (the loss's divisor).  Where the model needs
+    them (``extra``, host arrays already in this rank's layout):
+    ``e_loc`` [El, Fe] / ``e_hal`` [Eh, Fe] edge features (GatedGCN, GPS's
+    GatedGCN local), ``gid`` [Nb] graph ids (GPS), ``outdeg`` [Nb] the
+    raw out-degree (the SCN's MinCUT); None otherwise."""
+
+    EXTRA = ("e_loc", "e_hal", "gid", "outdeg")
 
     def __init__(self, plan: dict, x, y, ok, rank: int, real_rows: int,
-                 device, group, csr: CsrPlan | None):
+                 device, group, csr: CsrPlan | None, **extra):
         def idx(key):
             return torch.from_numpy(plan[key][rank].astype(np.int64)).to(
                 device)
+
+        def tensor(a):
+            return (None if a is None
+                    else torch.from_numpy(np.ascontiguousarray(a)).to(device))
 
         self.nb = plan["block_size"]
         self.x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
@@ -101,33 +113,38 @@ class Block:
         self.csr = csr.to(device) if csr is not None else None
         self.real_rows = real_rows
         self.group = group
-        self._gcn_norm = None
+        for key in self.EXTRA:
+            setattr(self, key, tensor(extra.get(key)))
+        self._gcn_norm = {}
 
     def halo(self, h: torch.Tensor) -> Halo:
         """Issue the exchange of ``h`` [Nb, F]'s boundary rows."""
         return start_halo(h, self.send_idx, self.group)
 
-    def gcn_norm(self):
+    def gcn_norm(self, self_loops: bool = True):
         """(w_loc [El], w_hal [Eh], diag [Nb]) float32: the GCN weights
         ``dinv[send] * dinv[recv]`` (0 on padding edges) and the self
-        loop's ``dinv**2``, with ``deg`` the global in-degree plus one (all
-        of a row's edges are on its owner).  The sender's ``dinv`` of a
-        halo edge comes from its owner in one exchange, the first time a
-        forward asks (every rank asks at the same forward)."""
-        if self._gcn_norm is None:
+        loop's ``dinv**2``, with ``deg`` the global in-degree, plus one
+        with ``self_loops`` (all of a row's edges are on its owner; a row
+        of degree 0 gets dinv 0).  The sender's ``dinv`` of a halo edge
+        comes from its owner in one exchange, the first time a forward
+        asks (every rank asks at the same forward)."""
+        if self_loops not in self._gcn_norm:
             with torch.no_grad():
                 ones_l = self.m_loc.float()
                 ones_h = self.m_hal.float()
                 deg = (segment_sum(ones_l, self.rcv_loc, self.nb)
-                       + segment_sum(ones_h, self.rcv_hal, self.nb) + 1.0)
-                dinv = torch.rsqrt(deg)
+                       + segment_sum(ones_h, self.rcv_hal, self.nb)
+                       + float(self_loops))
+                dinv = torch.where(deg > 0,
+                                   torch.rsqrt(deg.clamp_min(1e-12)), 0.0)
                 dinv_halo = self.halo(dinv[:, None]).wait()[:, 0]
                 w_loc = torch.where(self.m_loc, dinv[self.snd_loc]
                                     * dinv[self.rcv_loc], 0.0)
                 w_hal = torch.where(self.m_hal, dinv_halo[self.snd_hal]
                                     * dinv[self.rcv_hal], 0.0)
-                self._gcn_norm = (w_loc, w_hal, dinv * dinv)
-        return self._gcn_norm
+                self._gcn_norm[self_loops] = (w_loc, w_hal, dinv * dinv)
+        return self._gcn_norm[self_loops]
 
 
 def local_aggregate(h: torch.Tensor, w: torch.Tensor,
@@ -158,8 +175,9 @@ def _cast(dtype, *tensors):
     return tensors if dtype is None else tuple(t.to(dtype) for t in tensors)
 
 
-class _GCNLayer(nn.Module):
-    """JAX's ``{"kernel" [in, out], "bias"}``: weight [out, in], bias."""
+class Affine(nn.Module):
+    """JAX's ``{"kernel" [in, out], "bias"}``: weight [out, in]
+    (glorot-uniform), bias (zero), applied by its model."""
 
     def __init__(self, in_features: int, features: int, generator=None):
         super().__init__()
@@ -177,7 +195,7 @@ class ShardedGCN(nn.Module):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
         self.layers = nn.ModuleList(
-            _GCNLayer(dims[i], dims[i + 1], generator)
+            Affine(dims[i], dims[i + 1], generator)
             for i in range(len(dims) - 1))
 
     def forward(self, blk: Block, generator=None) -> torch.Tensor:
@@ -339,21 +357,33 @@ class ShardedGAT(nn.Module):
 
 def build_sharded_model(conv: str, dims: list[int], heads: int = 1,
                         dtype=None, dropout: float = 0.0,
-                        generator: torch.Generator | None = None
-                        ) -> nn.Module:
-    """``conv`` "gcn", "gin" or "gat" over ``dims`` (input, hidden...,
-    classes); GatedGCN and GPS raise (ROADMAP queue A, item 11.2)."""
+                        generator: torch.Generator | None = None,
+                        edge_features: int | None = None,
+                        local_conv: str = "gcn",
+                        hidden: int | None = None) -> nn.Module:
+    """``conv`` "gcn", "gin", "gat", "gatedgcn" or "gps" over ``dims``
+    (input, hidden..., classes: one layer a step of ``dims``; GatedGCN and
+    GPS run all their layers ``hidden`` wide, by default ``dims[1]``).
+    ``edge_features``: the batch's edge-feature width (GatedGCN, GPS's
+    GatedGCN local), None without; ``local_conv``: GPS's local module,
+    "gcn" or "gatedgcn"."""
+    hidden = hidden or dims[1]
     if conv == "gcn":
         return ShardedGCN(dims, dtype, dropout, generator)
     if conv == "gin":
         return ShardedGIN(dims, dtype, dropout, generator)
     if conv == "gat":
         return ShardedGAT(dims, heads, dtype, dropout, generator)
-    if conv in ("gatedgcn", "gps"):
-        raise NotImplementedError(
-            f"edge-partitioned {conv} (parallel/sharded_"
-            f"{'gatedgcn' if conv == 'gatedgcn' else 'gps'}.py): ROADMAP "
-            "queue A, item 11.2")
+    if conv == "gatedgcn":
+        from graph_hscn_tpu_torch.parallel.sharded_gatedgcn import \
+            ShardedGatedGCN
+        return ShardedGatedGCN(dims[0], edge_features, hidden, dims[-1],
+                               len(dims) - 1, dtype, dropout, generator)
+    if conv == "gps":
+        from graph_hscn_tpu_torch.parallel.sharded_gps import ShardedGPS
+        return ShardedGPS(dims[0], hidden, dims[-1], len(dims) - 1, heads,
+                          local_conv, edge_features, dtype, dropout,
+                          generator=generator)
     raise ValueError("edge-partitioned path supports conv_type gcn, gat, "
                      f"gin, gatedgcn or gps, got {conv!r}")
 
@@ -375,33 +405,45 @@ def local_loss(logits: torch.Tensor, blk: Block) -> torch.Tensor:
     return (per * blk.ok).sum() / max(blk.real_rows, 1)
 
 
-def loss_and_grads(model: nn.Module, blk: Block,
-                   generator=None) -> torch.Tensor:
-    """The split's loss and the gradient of every parameter, both summed
-    over the ranks in one ``all_reduce`` of a flat buffer; the gradients
-    are left in ``p.grad``.  Returns the loss (0-d, on the device)."""
-    params = list(model.parameters())
-    for p in params:
-        p.grad = None
-    loss = local_loss(model(blk, generator), blk)
-    loss.backward()
+def all_reduce_grads(params: list, group, loss: torch.Tensor | None = None
+                     ) -> torch.Tensor | None:
+    """Every parameter's gradient (zeros where it has none) summed over
+    the ranks, and ``loss`` (0-d) with them where given, in one
+    ``all_reduce`` of a flat buffer; the sums are left in ``p.grad``.
+    Returns the summed loss, or None."""
+    extra = [] if loss is None else [loss.reshape(1)]
     flat = torch.cat([(p.grad if p.grad is not None
                        else torch.zeros_like(p)).reshape(-1)
-                      for p in params] + [loss.detach().reshape(1)])
-    dist.all_reduce(flat, group=blk.group)
+                      for p in params] + extra)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for p in params:
         p.grad = flat[offset:offset + p.numel()].view_as(p)
         offset += p.numel()
-    return flat[-1]
+    return None if loss is None else flat[-1]
+
+
+def loss_and_grads(model: nn.Module, blk: Block, *args) -> torch.Tensor:
+    """The split's loss and the gradient of every parameter, both summed
+    over the ranks in one ``all_reduce`` of a flat buffer; the gradients
+    are left in ``p.grad``.  ``args`` go to the model after the block
+    (a dropout generator; an HSCN's cluster ids).  Returns the loss (0-d,
+    on the device)."""
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    loss = local_loss(model(blk, *args), blk)
+    loss.backward()
+    return all_reduce_grads(params, blk.group, loss.detach())
 
 
 @torch.no_grad()
-def gather_logits(model: nn.Module, blk: Block) -> torch.Tensor:
+def gather_logits(model: nn.Module, blk: Block, *args) -> torch.Tensor:
     """The split's logits [N, C] float32 on every rank: the model's
-    forward in eval mode, the blocks all-gathered."""
+    forward on ``blk`` (and ``args``) in eval mode, the blocks
+    all-gathered."""
     model.eval()
-    return all_gather_rows(model(blk), blk.group)
+    return all_gather_rows(model(blk, *args), blk.group)
 
 
 @dataclasses.dataclass
@@ -421,29 +463,53 @@ class Split:
 
 def partition_arrays(senders, receivers, edge_mask, node_feat, node_y,
                      node_mask, mesh: Mesh, reorder: bool = True,
-                     use_plan: bool = False) -> Split:
+                     use_plan: bool = False, edge_feat=None, node_graph=None,
+                     outdeg: bool = False) -> Split:
     """A packed batch's arrays (receiver-sorted edges, rows a multiple of
     the mesh size) as a :class:`Split`: its nodes reordered by
     Cuthill-McKee and its edges re-sorted by receiver when ``reorder``,
     the halo exchange planned, and ``mesh.rank``'s block kept on
     ``mesh.device`` (with its local edges' ``CsrPlan`` when
-    ``use_plan``).  Every rank computes the same plan."""
+    ``use_plan``).  Where given, the block carries the edge features
+    ``edge_feat`` [E, Fe] in its local and halo groups (the plan's edge
+    indices composed through the re-sort's order, as JAX's
+    ``fit_edge_partitioned`` does) and the graph ids ``node_graph`` [N];
+    with ``outdeg`` the raw out-degree of its rows.  Every rank computes
+    the same plan."""
     t0 = time.perf_counter()
     D, rank = mesh.size, mesh.rank
     n = node_feat.shape[0]
     snd, rcv, em = senders, receivers, edge_mask
-    x, y, ok = node_feat, node_y, node_mask
-    perm = None
+    x, y, ok, gid = node_feat, node_y, node_mask, node_graph
+    perm = eo = None
     if reorder:
         perm = locality_reorder(snd, rcv, em, n, node_mask=ok)
         snd, rcv, x, y, ok = apply_node_reorder(perm, snd, rcv, x, y, ok)
+        if gid is not None:
+            gid = gid[perm]
         # The CSR plans need the receiver sort back.
-        snd, rcv, em, _ = sort_edges_by_receiver(snd, rcv, em, n)
+        snd, rcv, em, eo = sort_edges_by_receiver(snd, rcv, em, n)
     plan = plan_halo_exchange(snd, rcv, em, n, D)
+    if eo is not None:
+        # The plan's edge indices address the re-sorted edges: back to
+        # the batch's own order, where edge_feat's rows are.
+        plan["eidx_loc"] = eo[plan["eidx_loc"]]
+        plan["eidx_hal"] = eo[plan["eidx_hal"]]
+    extra = {}
+    if edge_feat is not None:
+        from graph_hscn_tpu_torch.parallel.sharded_gatedgcn import \
+            gather_edge_groups
+        e_loc, e_hal = gather_edge_groups(edge_feat, plan)
+        extra.update(e_loc=e_loc[rank], e_hal=e_hal[rank])
+    if gid is not None:
+        extra["gid"] = rank_block(gid.astype(np.int64), rank, D)
+    if outdeg:
+        deg = np.bincount(snd[em], minlength=n).astype(np.float32)
+        extra["outdeg"] = rank_block(deg, rank, D)
     csr = local_csr_plan(plan, rank) if use_plan else None
     blk = Block(plan, rank_block(x, rank, D), rank_block(y, rank, D),
                 rank_block(ok, rank, D), rank, int(ok.sum()), mesh.device,
-                mesh.group, csr)
+                mesh.group, csr, **extra)
     info = dict(rows=n, block_rows=plan["block_size"],
                 edges=int(em.sum()), halo_width=plan["halo_width"],
                 local_edges=int(plan["mask_loc"][rank].sum()),
@@ -453,17 +519,22 @@ def partition_arrays(senders, receivers, edge_mask, node_feat, node_y,
 
 
 def partition_split(graphs, mesh: Mesh, reorder: bool = True,
-                    use_plan: bool = False) -> Split:
+                    use_plan: bool = False, edges: bool = False,
+                    graph_ids: bool = False, outdeg: bool = False) -> Split:
     """Pack ``graphs`` into one batch (rows a multiple of D*8, the JAX
-    budget) and :func:`partition_arrays` it; ``info["seconds"]`` covers
-    the packing too."""
+    budget) and :func:`partition_arrays` it, with the batch's edge
+    features (``edges``, where it has them) and graph ids
+    (``graph_ids``); ``info["seconds"]`` covers the packing too."""
     t0 = time.perf_counter()
     budget = PadBudget.for_dataset(graphs, batch_size=len(graphs),
                                    node_multiple=mesh.size * 8)
     b = pack_batch(graphs, budget)
     split = partition_arrays(b.senders, b.receivers, b.edge_mask,
                              b.node_feat, b.node_y, b.node_mask, mesh,
-                             reorder, use_plan)
+                             reorder, use_plan,
+                             edge_feat=b.edge_feat if edges else None,
+                             node_graph=b.node_graph if graph_ids else None,
+                             outdeg=outdeg)
     split.info["seconds"] = time.perf_counter() - t0
     return split
 
@@ -499,23 +570,24 @@ def fit_edge_partitioned(dm, mesh: Mesh, mpnn_cfg, optim_cfg, training_cfg,
             "need cross-device statistics the sharded per-device programs "
             "don't compute); set use_batch_norm/use_layer_norm: false")
     conv = mpnn_cfg.conv_type.lower()
+    if conv not in ("gcn", "gat", "gin", "gatedgcn", "gps"):
+        raise ValueError("edge-partitioned path supports conv_type gcn, gat,"
+                         f" gin, gatedgcn or gps, got {mpnn_cfg.conv_type!r}")
+    local_conv = mpnn_cfg.gps_local_conv.lower()
     drop = float(mpnn_cfg.dropout or 0.0)
-    dims = ([dm.num_features]
-            + [mpnn_cfg.hidden_channels] * (mpnn_cfg.num_layers - 1)
-            + [dm.num_classes])
-    model = build_sharded_model(
-        conv, dims, heads=mpnn_cfg.num_heads, dtype=dtype, dropout=drop,
-        generator=torch.Generator().manual_seed(training_cfg.seed)
-    ).to(mesh.device)
     use_plan = (conv in KERNEL_CONVS
                 and kernel_enabled(torch.empty(0, device=mesh.device)))
     if dtype is not None:
         logger.info("[edge-partition] mixed precision: bf16 compute + "
                     "halo payloads, f32 params/logits.")
+    # GatedGCN and GPS's GatedGCN local keep the edge features; GPS's
+    # attention masks by graph id.
+    edges = conv == "gatedgcn" or (conv == "gps" and local_conv == "gatedgcn")
     splits = {}
     for name in ("train", "val", "test"):
         splits[name] = partition_split(dm.split(name), mesh, reorder,
-                                       use_plan)
+                                       use_plan, edges=edges,
+                                       graph_ids=conv == "gps")
         i = splits[name].info
         logger.info(f"[edge-partition] {name}: {i['rows']} node rows over "
                     f"{mesh.size} devices, halo width H={i['halo_width']}"
@@ -523,7 +595,36 @@ def fit_edge_partitioned(dm, mesh: Mesh, mpnn_cfg, optim_cfg, training_cfg,
                     f"{i['seconds']:.2f} s")
     if use_plan:
         logger.info("[edge-partition] local aggregation: csr_spmm / spmm_mh "
-                    "kernels on the rank's block")
+                    "/ segment_reduce kernels on the rank's block")
+    e_loc = splits["train"].block.e_loc
+    dims = ([dm.num_features]
+            + [mpnn_cfg.hidden_channels] * (mpnn_cfg.num_layers - 1)
+            + [dm.num_classes])
+    model = build_sharded_model(
+        conv, dims, heads=mpnn_cfg.num_heads, dtype=dtype, dropout=drop,
+        generator=torch.Generator().manual_seed(training_cfg.seed),
+        edge_features=None if e_loc is None else e_loc.shape[-1],
+        local_conv=local_conv, hidden=mpnn_cfg.hidden_channels
+    ).to(mesh.device)
+    return fit_blocks(model, splits, mesh, optim_cfg, training_cfg, logger,
+                      checkpointer, eval_only, predictions_sink, step_timing,
+                      dropout=drop)
+
+
+def fit_blocks(model: nn.Module, splits: dict, mesh: Mesh, optim_cfg,
+               training_cfg, logger, checkpointer=None,
+               eval_only: str | None = None,
+               predictions_sink: dict | None = None,
+               step_timing: bool = False, dropout: float = 0.0,
+               args: dict | None = None):
+    """The fit of a sharded model on packed ``splits`` ({name:
+    :class:`Split`}), shared by ``fit_edge_partitioned`` and the HSCN
+    pipeline's: one full-batch step an epoch with ``run_fit_loop``'s eval
+    cadence, early stop and checkpoints (every rank restores, rank 0
+    writes), or with ``eval_only`` the restored snapshot's ({split:
+    {"loss", metric}}, meta).  ``args``: {split: the model's arguments
+    after the block} (an HSCN's cluster ids); without them a train step
+    passes the epoch's dropout generator (``dropout`` > 0) or None."""
     metric_fn = METRICS[training_cfg.metric]
     counts = {"train": 0, "eval": 0}
 
@@ -531,7 +632,8 @@ def fit_edge_partitioned(dm, mesh: Mesh, mpnn_cfg, optim_cfg, training_cfg,
         """(logits over the real rows [R, C] on the host, targets [R, C])."""
         s = splits[split]
         counts["eval"] += 1
-        logits = gather_logits(model, s.block).cpu()
+        logits = gather_logits(model, s.block,
+                               *(args or {}).get(split, ())).cpu()
         return logits[torch.from_numpy(s.node_mask)], s.node_y[s.node_mask]
 
     def evaluate(split):
@@ -574,9 +676,13 @@ def fit_edge_partitioned(dm, mesh: Mesh, mpnn_cfg, optim_cfg, training_cfg,
     def train_epoch(epoch):
         t0 = time.perf_counter()
         model.train()
-        g = (dropout_generator(training_cfg.seed, epoch, mesh.rank,
-                               mesh.device) if drop > 0.0 else None)
-        loss = loss_and_grads(model, blk, g)
+        if args is not None:
+            step_args = args["train"]
+        else:
+            step_args = (dropout_generator(training_cfg.seed, epoch,
+                                           mesh.rank, mesh.device)
+                         if dropout > 0.0 else None,)
+        loss = loss_and_grads(model, blk, *step_args)
         opt.step()
         counts["train"] += 1
         if step_timing:

@@ -11,9 +11,11 @@ run_train, main.py:85-120), its single-device paths:
         (hscn_pipeline.py), on host batches or the device-resident
         dataset.
 
-  mesh: ``mesh.edge_partition`` on a 1-D mesh: the sharded GCN, GIN or
-        GAT over the ranks of a process group (parallel/sharded_gcn.py),
-        one rank a device; without a group the run makes a 1-rank one.
+  mesh: ``mesh.edge_partition`` on a 1-D mesh: the sharded GCN, GIN,
+        GAT, GatedGCN or ring-attention GPS over the ranks of a process
+        group (parallel/sharded_gcn.py), or with ``hscn:`` the sharded
+        SCN clustering and HSCN (parallel/sharded_scn.py), one rank a
+        device; without a group the run makes a 1-rank one.
 
 With ``pe`` set, the eigen stats (and the frozen SignNet transform) come
 first, or the trainable SignNet wraps the model; with
@@ -48,6 +50,8 @@ from graph_hscn_tpu_torch.ops import spmm as spmm_mod
 from graph_hscn_tpu_torch.parallel.mesh import (make_mesh, process_group,
                                                 resolve_mesh_shape, this_rank)
 from graph_hscn_tpu_torch.parallel.sharded_gcn import fit_edge_partitioned
+from graph_hscn_tpu_torch.parallel.sharded_scn import \
+    fit_hscn_edge_partitioned
 from graph_hscn_tpu_torch.train.checkpoint import Checkpointer
 from graph_hscn_tpu_torch.train.loop import (FitResult, evaluate_checkpoint,
                                              fit, fit_device)
@@ -194,12 +198,20 @@ def _mesh_shape(cfg: ExperimentConfig, dm) -> list[int] | None:
     (runner.py:151-177)."""
     shape = resolve_mesh_shape(cfg.mesh.shape)
     if cfg.hscn is not None:
-        # JAX's HSCN takes the mesh only with edge_partition.
-        if cfg.mesh.edge_partition:
-            raise NotImplementedError(
-                "edge-partitioned HSCN (parallel/sharded_scn.py): ROADMAP "
-                "queue A, item 11.3")
-        return None
+        # JAX's HSCN takes the mesh only with edge_partition, and then
+        # even on one device (runner.py:84-94).
+        if not cfg.mesh.edge_partition:
+            return None
+        if dm.task_level != "node":
+            raise ValueError("mesh.edge_partition targets node-level tasks "
+                             "(giant-graph full-batch training)")
+        if len(shape) != 1:
+            raise ValueError("edge-partitioned HSCN takes a 1-D mesh")
+        if cfg.pe is not None and not cfg.compat.frozen_random_signnet:
+            raise ValueError("edge-partitioned paths support PE only as the "
+                             "precomputed transform; set "
+                             "compat.frozen_random_signnet: true")
+        return shape
     if int(np.prod(shape)) == 1 and not cfg.mesh.edge_partition:
         return None
     if not cfg.mesh.edge_partition:
@@ -224,10 +236,22 @@ def _mesh_shape(cfg: ExperimentConfig, dm) -> list[int] | None:
 
 def _edge_partitioned(cfg: ExperimentConfig, dm, shape, device,
                       compute_dtype, logger, **kwargs):
-    """``fit_edge_partitioned`` on a mesh of ``shape`` over the process
+    """``fit_edge_partitioned`` (or for an HSCN config
+    ``fit_hscn_edge_partitioned``) on a mesh of ``shape`` over the process
     group (made for the run when none exists)."""
     with process_group(device) as device:
         mesh = make_mesh(tuple(cfg.mesh.axes), tuple(shape), device)
+        if cfg.hscn is not None:
+            logger.info(f"Edge-partitioned HSCN pipeline over {mesh.size} "
+                        f"ranks on {device} (sharded SCN clustering + "
+                        f"halo-exchange hetero conv, {dist.get_backend()}).")
+            return fit_hscn_edge_partitioned(
+                dm, mesh, cfg.hscn, cfg.optim, cfg.training, logger,
+                checkpointer=_checkpointer(cfg),
+                reorder=cfg.mesh.locality_reorder,
+                vv_pattern=("triangular" if cfg.compat.vv_triangular_pattern
+                            else "clique"),
+                dtype=compute_dtype, **kwargs)
         logger.info(f"Edge-partitioned {cfg.mpnn.conv_type} over "
                     f"{mesh.size} ranks on {device} (halo exchange, "
                     f"{dist.get_backend()}).")

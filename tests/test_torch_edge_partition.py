@@ -11,7 +11,8 @@ against the JAX package's on the same inputs.
 - The v1, v2 and v3 sharded SpMM programs at D = 2 and 4 (gloo ranks, one
   process each, ``tests/torch_dist.py``) against JAX's
   ``make_sharded_spmm*`` on a D-device CPU mesh within 1e-5 * max|ref|
-  (float sums in another order).
+  (float sums in another order); MinCUT pooling's contractions
+  (``make_sharded_mincut_contractions``) likewise.
 """
 
 import jax
@@ -194,6 +195,38 @@ def test_sharded_spmm_programs_match_jax(D, tmp_path):
         assert np.abs(got - ref).max() <= tol, version
     # Every rank's diagonal halo slots are padding (send local row 0).
     assert not plan["send_idx"][np.arange(D), np.arange(D)].any()
+
+
+@pytest.mark.parametrize("D", (2, 4))
+def test_sharded_mincut_contractions_match_jax(D, tmp_path):
+    """S^T X and S^T A S (MinCUT pooling's contractions) on D gloo ranks
+    against JAX's ``make_sharded_mincut_contractions`` on D CPU devices
+    and the dense products, within 1e-5 * max|ref|, the same on every
+    rank."""
+    snd, rcv, em, n, _ = _edges(D)
+    rng = np.random.default_rng(1)
+    s = rng.normal(size=(n, 4)).astype(np.float32)
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    outs = torch_dist.spawn("mincut_contractions", D, dict(
+        s=s, x=x, senders=snd, receivers=rcv, edge_mask=em), tmp_path)
+
+    mesh = jax_make_mesh(("data",), (D,), devices=jax.devices()[:D])
+    snd_d, rcv_d, m_d, nb, _ = jep.partition_edges_by_receiver(
+        snd, rcv, em, n, D)
+    stx, stas = jep.make_sharded_mincut_contractions(mesh)(
+        *jep.shard_arrays(mesh, s.reshape(D, nb, -1), x.reshape(D, nb, -1),
+                          snd_d, rcv_d, m_d))
+    a = np.zeros((n, n), np.float32)
+    np.add.at(a, (rcv[em], snd[em]), 1.0)
+    for ref, dense, key in ((stx, s.T @ x, "stx"),
+                            (stas, s.T @ a @ s, "stas")):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(ref, dense, rtol=0,
+                                   atol=1e-5 * np.abs(dense).max())
+        for out in outs:
+            assert np.abs(out[key] - ref).max() <= 1e-5 * np.abs(ref).max()
+        for out in outs[1:]:
+            np.testing.assert_array_equal(out[key], outs[0][key])
 
 
 def test_mesh_shape_against_the_group(tmp_path):

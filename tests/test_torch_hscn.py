@@ -500,9 +500,18 @@ def test_hscn_configs_train_through_run_experiment(name, monkeypatch):
 
 
 def test_edge_partition_hscn_still_raises():
-    """The edge-partitioned HSCN (the mesh path) is not ported yet."""
+    """Named when the edge-partitioned HSCN raised: the shipped config
+    (mesh.shape [-1], here one rank) trains as shipped but for its data
+    and epochs (8 graphs, 2 clustering epochs, 2 epochs), through the
+    sharded SCN and HSCN (parallel/sharded_scn.py), with finite losses
+    and its splits' plans."""
     cfg = load_config(HSCN_CONFIGS
                       / "voc_superpixels_HSCN_edge_partition.yaml")
+    assert cfg.mesh.shape == [-1] and cfg.mesh.edge_partition
     cfg.data.num_graphs = 8
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_experiment(cfg, device="cpu")
+    cfg.hscn.cluster_epochs = cfg.training.epochs = 2
+    result = run_experiment(cfg, device="cpu")
+    assert result.num_train_steps == 2 and len(result.cluster_losses) == 2
+    assert np.isfinite(result.cluster_losses).all()
+    assert all(np.isfinite(h["train_loss"]) for h in result.history)
+    assert set(result.partition) == {"train", "val", "test"}

@@ -177,33 +177,51 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
 # and so are positional encodings and checkpoints
 # (tests/test_torch_posenc.py, tests/test_torch_checkpoint.py): their cases
 # left this list; the others keep their ids.
-@pytest.mark.parametrize("path,change,match", [
-    pytest.param("GCN/peptides_func_GCN_dp8.yaml", {}, "mesh",
-                 id="GCN/peptides_func_GCN_dp8.yaml-change2-mesh"),
-    # The HSCN pipeline is ported (tests/test_torch_hscn.py); its
-    # edge-partitioned mesh route is not.
+@pytest.mark.parametrize("path,change,error,match", [
+    pytest.param("GCN/peptides_func_GCN_dp8.yaml", {}, NotImplementedError,
+                 "mesh", id="GCN/peptides_func_GCN_dp8.yaml-change2-mesh"),
+    # The edge-partitioned HSCN is ported (tests/test_torch_sharded_scn.py,
+    # tests/test_torch_sharded_hscn.py): on the graph-level peptides
+    # config it raises JAX's ValueError, in both packages.
     pytest.param("HSCN/peptides_func_HSCN.yaml", {"mesh.edge_partition": True},
-                 "HSCN", id="HSCN/peptides_func_HSCN.yaml-change4-HSCN"),
+                 ValueError, "node-level",
+                 id="HSCN/peptides_func_HSCN.yaml-change4-HSCN"),
     pytest.param("GCN/voc_superpixels_GCN_sparse.yaml", {"mesh.shape": [2]},
-                 "mesh", id="GCN/voc_superpixels_GCN_sparse.yaml-change5-mesh"),
+                 NotImplementedError, "mesh",
+                 id="GCN/voc_superpixels_GCN_sparse.yaml-change5-mesh"),
     pytest.param("GCN/voc_superpixels_GCN_sparse.yaml",
-                 {"runtime.debug_nans": True}, "debug_nans",
+                 {"runtime.debug_nans": True}, NotImplementedError,
+                 "debug_nans",
                  id="GCN/voc_superpixels_GCN_sparse.yaml-change7-debug_nans"),
     # Keys JAX reads and the port does not yet: refused, not ignored.
     pytest.param("GCN/peptides_func_GCN.yaml",
-                 {"runtime.profile_dir": "trace"}, "profile_dir.*item 12",
+                 {"runtime.profile_dir": "trace"}, NotImplementedError,
+                 "profile_dir.*item 12",
                  id="GCN/peptides_func_GCN.yaml-profile_dir"),
     pytest.param("HSCN/peptides_func_HSCN.yaml",
-                 {"runtime.multihost": "on"}, "multihost.*item 11",
+                 {"runtime.multihost": "on"}, NotImplementedError,
+                 "multihost.*item 11",
                  id="HSCN/peptides_func_HSCN.yaml-multihost"),
 ])
-def test_run_experiment_later_slices_raise(path, change, match):
-    cfg = _small_cfg(ROOT / "configs" / path)
-    for key, value in change.items():
-        section, field = key.split(".")
-        setattr(getattr(cfg, section), field, value)
-    with pytest.raises(NotImplementedError, match=match):
-        run_experiment(cfg, device="cpu")
+def test_run_experiment_later_slices_raise(path, change, error, match):
+    """The paths of later slices raise NotImplementedError naming their
+    ROADMAP item; a ValueError case is JAX's own refusal, which JAX's
+    run_experiment raises on the same config too."""
+    cfgs = [_small_cfg(ROOT / "configs" / path)]
+    if error is ValueError:
+        from graph_hscn_tpu.config.config import load_config as jax_load
+        cfgs.append(jax_load(ROOT / "configs" / path))
+        cfgs[-1].data.num_graphs = 24
+    for cfg in cfgs:
+        for key, value in change.items():
+            section, field = key.split(".")
+            setattr(getattr(cfg, section), field, value)
+    with pytest.raises(error, match=match):
+        run_experiment(cfgs[0], device="cpu")
+    if error is ValueError:
+        from graph_hscn_tpu.runner import run_experiment as jax_run
+        with pytest.raises(error, match=match):
+            jax_run(cfgs[1])
 
 
 def test_dense_path_on_large_graphs_is_refused():

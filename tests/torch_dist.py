@@ -1,6 +1,6 @@
 """Run a function of this module on D gloo ranks, one process each, for
-the port's edge-partition tests (tests/test_torch_edge_partition.py,
-tests/test_torch_sharded_gcn.py, tests/test_torch_sharded_gat.py).
+the port's edge-partition tests (tests/test_torch_edge_partition.py and
+tests/test_torch_sharded_*.py).
 
     outs = spawn("sharded_model", world=4, args={...}, tmp=tmp_path)
 
@@ -121,80 +121,214 @@ def spmm_programs(rank: int, world: int, x, senders, receivers, edge_mask):
 
 
 def build(conv: str, dims, heads: int, state: dict, dtype=None,
-          dropout: float = 0.0):
+          dropout: float = 0.0, tile: int | None = None, **kwargs):
+    """The port's sharded ``conv`` from ``state`` (``kwargs`` to
+    ``build_sharded_model``; ``tile``: the GPS's key tile)."""
     from graph_hscn_tpu_torch.parallel.sharded_gcn import build_sharded_model
     model = build_sharded_model(conv, dims, heads=heads, dtype=dtype,
-                                dropout=dropout)
+                                dropout=dropout, **kwargs)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    if tile is not None:
+        model.tile = tile
     return model
+
+
+def _arrays(batch: dict) -> tuple[list, dict]:
+    """``partition_arrays``' positional arrays of a batch, and its edge
+    features and graph ids where the batch has them."""
+    arrays = [batch[k] for k in ("senders", "receivers", "edge_mask",
+                                 "node_feat", "node_y", "node_mask")]
+    return arrays, {"edge_feat": batch.get("edge_feat"),
+                    "node_graph": batch.get("node_graph")}
+
+
+def _grads(model) -> dict:
+    return {k: p.grad.numpy().copy() for k, p in model.named_parameters()}
 
 
 def sharded_model(rank: int, world: int, conv: str, dims, heads: int,
                   state: dict, batch: dict, steps: int = 5,
                   lr: float = 0.01, weight_decay: float = 5e-4,
-                  bf16: bool = False, reorder_check: bool = False) -> dict:
+                  bf16: bool = False, reorder_check: bool = False,
+                  backend: str = "auto", plain_grads: bool = False,
+                  build_kwargs: dict | None = None) -> dict:
     """The sharded ``conv`` on this rank's block of ``batch`` from the
-    weights ``state`` (JAX's, converted): the logits block with the
-    kernels' route (the local-edge CsrPlan, the kernels' plain versions
-    here) and without it, the summed loss and gradients, and ``steps``
-    AdamW full-batch steps (their losses and the final weights); with
-    ``bf16`` the bfloat16 logits and gradients' finiteness; with
-    ``reorder_check`` the logits block of the locality-reordered batch."""
+    weights ``state`` (JAX's, converted; ``build_kwargs`` to
+    :func:`build`): the logits block with the kernels' route (the
+    local-edge CsrPlan, the kernels' plain versions here; ``backend`` the
+    spmm backend, "pallas" to force the route where the layer asks
+    ``kernel_enabled``) and without it, the summed loss and gradients
+    (``plain_grads``: also without the plan), and ``steps`` AdamW
+    full-batch steps (their losses and the final weights); with ``bf16``
+    the bfloat16 logits and gradients' finiteness; with ``reorder_check``
+    the logits block of the locality-reordered batch.  The batch's edge
+    features and graph ids go with it where it has them."""
+    from graph_hscn_tpu_torch.ops import spmm
     from graph_hscn_tpu_torch.parallel.sharded_gcn import (
         gather_logits, loss_and_grads, partition_arrays)
     from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 
+    previous = spmm.get_backend()
+    spmm.set_backend(backend)
+    try:
+        build_kwargs = build_kwargs or {}
+        mesh = _mesh(rank, world)
+        arrays, extra = _arrays(batch)
+        planned = partition_arrays(*arrays, mesh, reorder=False,
+                                   use_plan=True, **extra).block
+        plain = partition_arrays(*arrays, mesh, reorder=False, **extra).block
+        model = build(conv, dims, heads, state, **build_kwargs)
+        out = {"logits_plan": gather_logits(model, planned).numpy(),
+               "logits_plain": gather_logits(model, plain).numpy()}
+        model.train()
+        if plain_grads:
+            out["loss_plain"] = float(loss_and_grads(model, plain))
+            out["grads_plain"] = _grads(model)
+        out["loss"] = float(loss_and_grads(model, planned))
+        out["grads"] = _grads(model)
+        opt = build_optimizer(model.parameters(), "adamW", lr, weight_decay)
+        out.update(_steps(model, opt, lambda: loss_and_grads(model, planned),
+                          steps))
+        if bf16:
+            m16 = build(conv, dims, heads, state, dtype=torch.bfloat16,
+                        **build_kwargs)
+            out["logits_bf16"] = gather_logits(m16, planned).numpy()
+            m16.train()
+            loss16 = loss_and_grads(m16, planned)
+            out["bf16_finite"] = bool(torch.isfinite(loss16)) and all(
+                bool(p.grad.isfinite().all()) for p in m16.parameters())
+        if reorder_check:
+            split = partition_arrays(*arrays, mesh, reorder=True,
+                                     use_plan=True, **extra)
+            out["logits_reordered"] = gather_logits(
+                build(conv, dims, heads, state, **build_kwargs),
+                split.block).numpy()
+            out["perm"] = split.perm
+        return out
+    finally:
+        spmm.set_backend(previous)
+
+
+def _steps(model, opt, step, steps: int) -> dict:
+    """``steps`` of ``step()`` (a loss and gradients) and ``opt.step``:
+    their losses and the final weights."""
+    losses = []
+    for _ in range(steps):
+        losses.append(float(step()))
+        opt.step()
+    return {"step_losses": losses,
+            "final": {k: v.detach().numpy().copy()
+                      for k, v in model.state_dict().items()}}
+
+
+def sharded_scn(rank: int, world: int, mp_units, clusters: int, state: dict,
+                batch: dict, steps: int = 3, lr: float = 0.01,
+                weight_decay: float = 5e-4) -> dict:
+    """The sharded SCN on this rank's block from ``state``, with the
+    local-edge CsrPlan (``csr_spmm``'s plain version here, where a layer's
+    input is 64 wide or more) and without: the two losses, the summed
+    gradients of their sum, the assignments of every row (all-gathered);
+    ``steps`` AdamW steps with the plan."""
+    from graph_hscn_tpu_torch.parallel.edge_partition import all_gather_rows
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import partition_arrays
+    from graph_hscn_tpu_torch.parallel.sharded_scn import (
+        ShardedSCN, scn_loss_and_grads)
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
     mesh = _mesh(rank, world)
-    arrays = [batch[k] for k in ("senders", "receivers", "edge_mask",
-                                 "node_feat", "node_y", "node_mask")]
+    arrays, _ = _arrays(batch)
+    model = ShardedSCN(arrays[3].shape[1], mp_units, clusters)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    out = {}
+    for route in ("plain", "plan"):
+        blk = partition_arrays(*arrays, mesh, reorder=False,
+                               use_plan=route == "plan", outdeg=True).block
+        with torch.no_grad():
+            mc, o = model.losses(blk)
+        out[route] = {"mc": float(mc), "o": float(o),
+                      "loss": float(scn_loss_and_grads(model, blk)),
+                      "grads": _grads(model),
+                      "assign": all_gather_rows(model.assign(blk)[:, None],
+                                                blk.group)[:, 0].numpy()}
+    opt = build_optimizer(model.parameters(), "adamW", lr, weight_decay)
+    out.update(_steps(model, opt, lambda: scn_loss_and_grads(model, blk),
+                      steps))
+    return out
+
+
+def sharded_hscn(rank: int, world: int, state: dict, batch: dict,
+                 clusters, model_kwargs: dict, steps: int = 3,
+                 lr: float = 0.01, weight_decay: float = 5e-4) -> dict:
+    """The sharded HSCN (``model_kwargs`` to ``ShardedHSCN`` after the
+    input width) on this rank's block with the cluster ids ``clusters``
+    [N]: the logits with the local-edge CsrPlan (csr_spmm's plain
+    version here) and without, the summed loss and gradients and
+    ``steps`` AdamW steps."""
+    from graph_hscn_tpu_torch.parallel.edge_partition import rank_block
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
+        gather_logits, loss_and_grads, partition_arrays)
+    from graph_hscn_tpu_torch.parallel.sharded_hscn import ShardedHSCN
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    mesh = _mesh(rank, world)
+    arrays, _ = _arrays(batch)
     planned = partition_arrays(*arrays, mesh, reorder=False,
                                use_plan=True).block
     plain = partition_arrays(*arrays, mesh, reorder=False).block
-    model = build(conv, dims, heads, state)
-    out = {"logits_plan": gather_logits(model, planned).numpy(),
-           "logits_plain": gather_logits(model, plain).numpy()}
+    clust = torch.from_numpy(rank_block(clusters.astype(np.int64), rank,
+                                        world))
+    model = ShardedHSCN(arrays[3].shape[1], **model_kwargs)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    out = {"logits_plan": gather_logits(model, planned, clust).numpy(),
+           "logits_plain": gather_logits(model, plain, clust).numpy()}
     model.train()
-    out["loss"] = float(loss_and_grads(model, planned))
-    out["grads"] = {k: p.grad.numpy().copy()
-                    for k, p in model.named_parameters()}
+    out["loss"] = float(loss_and_grads(model, planned, clust))
+    out["grads"] = _grads(model)
     opt = build_optimizer(model.parameters(), "adamW", lr, weight_decay)
-    losses = []
-    for _ in range(steps):
-        losses.append(float(loss_and_grads(model, planned)))
-        opt.step()
-    out["step_losses"] = losses
-    out["final"] = {k: v.detach().numpy().copy()
-                    for k, v in model.state_dict().items()}
-    if bf16:
-        m16 = build(conv, dims, heads, state, dtype=torch.bfloat16)
-        out["logits_bf16"] = gather_logits(m16, planned).numpy()
-        m16.train()
-        loss16 = loss_and_grads(m16, planned)
-        out["bf16_finite"] = bool(torch.isfinite(loss16)) and all(
-            bool(p.grad.isfinite().all()) for p in m16.parameters())
-    if reorder_check:
-        split = partition_arrays(*arrays, mesh, reorder=True, use_plan=True)
-        out["logits_reordered"] = gather_logits(
-            build(conv, dims, heads, state), split.block).numpy()
-        out["perm"] = split.perm
+    out.update(_steps(model, opt,
+                      lambda: loss_and_grads(model, planned, clust), steps))
     return out
+
+
+def mincut_contractions(rank: int, world: int, s, x, senders, receivers,
+                        edge_mask) -> dict:
+    """``make_sharded_mincut_contractions`` on this rank's blocks."""
+    from graph_hscn_tpu_torch.parallel import edge_partition as ep
+    n = s.shape[0]
+    snd, rcv, m, _, _ = ep.partition_edges_by_receiver(
+        senders, receivers, edge_mask, n, world)
+    stx, stas = ep.make_sharded_mincut_contractions()(
+        torch.from_numpy(ep.rank_block(s, rank, world)),
+        torch.from_numpy(ep.rank_block(x, rank, world)),
+        torch.from_numpy(snd[rank]).long(), torch.from_numpy(rcv[rank]).long(),
+        torch.from_numpy(m[rank]))
+    return {"stx": stx.numpy(), "stas": stas.numpy()}
 
 
 def use_init(state: dict, setattr=setattr) -> None:
     """The port's edge-partitioned fits start from ``state`` (a
-    state_dict of numpy arrays: JAX's init, converted): ``setattr``
-    replaces ``sharded_gcn.build_sharded_model`` (pass pytest's
-    ``monkeypatch.setattr`` to have it restored)."""
+    state_dict of numpy arrays: JAX's init, converted; for the HSCN
+    pipeline {"scn": ..., "hscn": ...}): ``setattr`` replaces
+    ``sharded_gcn.build_sharded_model``, or ``sharded_scn.ShardedSCN`` and
+    ``.ShardedHSCN`` (pass pytest's ``monkeypatch.setattr`` to have them
+    restored)."""
     from graph_hscn_tpu_torch.parallel import sharded_gcn as psg
-    real = psg.build_sharded_model
+    from graph_hscn_tpu_torch.parallel import sharded_scn as pss
 
-    def build(*args, **kwargs):
-        model = real(*args, **kwargs)
-        model.load_state_dict({k: torch.from_numpy(v)
-                               for k, v in state.items()})
-        return model
+    def loading(real, weights):
+        def build(*args, **kwargs):
+            model = real(*args, **kwargs)
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in weights.items()})
+            return model
+        return build
 
-    setattr(psg, "build_sharded_model", build)
+    if set(state) == {"scn", "hscn"}:
+        setattr(pss, "ShardedSCN", loading(pss.ShardedSCN, state["scn"]))
+        setattr(pss, "ShardedHSCN", loading(pss.ShardedHSCN, state["hscn"]))
+    else:
+        setattr(psg, "build_sharded_model",
+                loading(psg.build_sharded_model, state))
 
 
 def run_cli(rank: int, world: int, raw: dict, predict: str,
