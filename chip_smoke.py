@@ -186,6 +186,35 @@ Phases; any failure exits non-zero:
                step, 3 an eval forward, none while clustering; the card
                against the CPU with the card's clusters, and the SCN's
                losses), with [resume] and [eval] of the HSCN one.
+     dp      - configs/GCN/peptides_func_GCN_dp8.yaml's widths (global
+               batch 128, hidden 128, 5 layers, slot 392) through fit_dp on
+               a 1-rank NCCL group (run_experiment's data_parallel), 2
+               epochs without dropout: per-epoch losses within 1e-5
+               relative of the single-device host fit on the same global
+               batches; its runtime.fused_stack: on twin (fused_gcn_fwd /
+               fused_gcn_bwd launches counted) and its runtime.dense_path:
+               sparse twin (csr_spmm: 10 a train step, 5 an eval batch);
+               each run's step ms and peak memory, a train step profiled
+               (idle share); csr_spmm at the sparse twin's first batch
+               (F = 128 and 10, forward and transpose) and the fused
+               kernels at G = 128, S = 392 against their plain versions.
+     hybrid  - configs/GCN/voc_superpixels_GCN_hybrid.yaml at mesh.shape
+               [1, 1] (512 graphs, hidden 64, 4 layers): csr_spmm (F = 64,
+               forward and transpose) and spmm_mh / sddmm_mh (one head,
+               C = 64) at the train block against their plain versions;
+               run_experiment 2 epochs with a checkpoint_dir (6 csr_spmm a
+               train step, 3 an eval forward), run_eval and main --eval
+               --predict on its snapshot; its GAT twin (JAX's one head: 6
+               spmm_mh + 3 sddmm_mh a train step, 3 spmm_mh an eval
+               forward) and GPS twin (64 graphs, no kernel); GCN and GAT on
+               the val block, card against CPU (KinkPins, float32 pinned).
+     loader  - configs/GCN/voc_superpixels_GCN_sparse.yaml with
+               data.num_workers 2: two epochs' train batches equal, array
+               for array with their CSR plans, to the JAX PrefetchLoader's
+               order (shuffle by default_rng(seed), batch_size chunks, a
+               chunk over the budget split in halves); run_experiment 2
+               epochs (csr_spmm counted), its median step ms beside the
+               num_workers 0 run's; an epoch of each profiled (idle share).
 A [time] line gives the script's wall time.  The last three lines are the
 {"kernels": [...]} record, nvidia-smi's line, and {"ok": true, "device":
 {...}}.
@@ -242,6 +271,18 @@ GAT_EP = REPO / "configs" / "GAT" / "voc_superpixels_GAT_edge_partition.yaml"
 GATED_EP = (REPO / "configs" / "GatedGCN"
             / "voc_superpixels_GatedGCN_edge_partition.yaml")
 HSCN_EP = REPO / "configs" / "HSCN" / "voc_superpixels_HSCN_edge_partition.yaml"
+DP8 = REPO / "configs" / "GCN" / "peptides_func_GCN_dp8.yaml"
+HYBRID = REPO / "configs" / "GCN" / "voc_superpixels_GCN_hybrid.yaml"
+# fit_dp on one rank, without dropout (the single-device fit it is held
+# against draws other bits); its fused and sparse twins.
+DP_ONE = {"mesh.shape": [1], "mpnn.dropout": 0.0}
+DP_FUSED = {**DP_ONE, "runtime.fused_stack": "on"}
+DP_SPARSE = {**DP_ONE, "runtime.dense_path": "sparse"}
+HYBRID_ONE = {"mesh.shape": [1, 1]}
+HYBRID_GAT = {**HYBRID_ONE, "mpnn.conv_type": "gat"}
+# Ring attention is O(N_b^2): 64 graphs, as the [edge_partition] GPS.
+HYBRID_GPS = {**HYBRID_ONE, "mpnn.conv_type": "gps", "mpnn.num_heads": 4,
+              "data.num_graphs": 64}
 ONE_RANK = {"mesh.shape": [1]}
 GIN_EP = {"mesh.shape": [1], "mpnn.conv_type": "gin"}
 # The VOC GPS config on the edge-partitioned route: ring attention costs
@@ -650,7 +691,10 @@ def gat_batch_plan():
     return next(iter(dm.train_batches(epoch_seed=dm.seed))).to("cuda").spmm
 
 
-def gat_cases(p) -> list[dict]:
+GAT_SPMM_SHAPES = ((4, 16), (4, 21), (4, 2))
+
+
+def gat_cases(p, spmm_shapes=GAT_SPMM_SHAPES, sddmm_shapes=None) -> list:
     """Every width and role at which a VOC GAT train step launches spmm_mh
     (B6) and sddmm_mh (B7), on plan ``p``, float32 and bfloat16:
     - spmm_mh forward (row_ptr, col) and transpose (t_row_ptr, t_col, alpha
@@ -663,7 +707,9 @@ def gat_cases(p) -> list[dict]:
     int64 entries on the transpose), its inputs, and a library call (one
     torch.sparse.mm / sampled_addmm on the block-diagonal [H*N, H*N] CSR,
     against head-major float32 operands laid out beforehand; float32 only)
-    with the map of its result to the kernel's layout."""
+    with the map of its result to the kernel's layout.  ``spmm_shapes``
+    ((H, C), ...) and ``sddmm_shapes`` ((H, C, source dtype, destination
+    dtype), ...): another path's widths."""
     import torch
 
     from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (
@@ -673,7 +719,7 @@ def gat_cases(p) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
-    for heads, c in ((4, 16), (4, 21), (4, 2)):
+    for heads, c in spmm_shapes:
         f = heads * c
         alpha = torch.rand(e, heads, device="cuda", generator=gen)
         a_t = alpha.index_select(0, p.t_order).contiguous()
@@ -698,12 +744,14 @@ def gat_cases(p) -> list[dict]:
                             + (n + 1) * 4 + nnz * 4 + n * f * 4
                             + (nnz * 8 if order is not None else 0)),
                     ops=2.0 * nnz * f, lib=lib))
-    pattern, order = block_diag_csr(p.row_ptr, p.col,
-                                    torch.zeros(e, 4, device="cuda"))
-    for heads, c, ds, dd in ((4, 16, f32, f32), (4, 16, bf16, bf16),
-                             (4, 16, bf16, f32), (4, 21, f32, f32),
-                             (4, 21, bf16, bf16), (4, 2, f32, f32),
-                             (4, 2, bf16, bf16)):
+    if sddmm_shapes is None:
+        sddmm_shapes = ((4, 16, f32, f32), (4, 16, bf16, bf16),
+                        (4, 16, bf16, f32), (4, 21, f32, f32),
+                        (4, 21, bf16, bf16), (4, 2, f32, f32),
+                        (4, 2, bf16, bf16))
+    for heads, c, ds, dd in sddmm_shapes:
+        pattern, order = block_diag_csr(p.row_ptr, p.col,
+                                        torch.zeros(e, heads, device="cuda"))
         f = heads * c
         hs = torch.randn(n, f, device="cuda", generator=gen).to(ds)
         hd = torch.randn(n, f, device="cuda", generator=gen).to(dd)
@@ -1234,12 +1282,14 @@ def load_with(path: Path, changes: dict | None = None):
 
 def train_run(path: Path, expected, label: str = "train",
               changes: dict | None = None,
-              cluster_epochs: int | None = EPOCHS) -> tuple:
+              cluster_epochs: int | None = EPOCHS, run=None) -> tuple:
     """One path through run_experiment on the card for EPOCHS epochs, every
     kernel's launch count from that run alone.  ``expected(cfg, steps,
     evals)`` gives the counts the path must show (a kernel it leaves out:
     0); ``changes`` are set on the config (``load_with``); an HSCN's
-    clustering runs ``cluster_epochs`` epochs (None: as shipped).  Returns
+    clustering runs ``cluster_epochs`` epochs (None: as shipped); ``run``
+    (default run_experiment) is the entry point, ``run(cfg,
+    step_timing=True)``.  Returns
     ({kernel: launches}, the FitResult, the median step ms,
     max_memory_allocated above what was allocated at the start)."""
     import torch
@@ -1263,7 +1313,7 @@ def train_run(path: Path, expected, label: str = "train",
     clustering: dict = {}
     t0 = time.perf_counter()
     with launches_while_clustering(kernels, clustering):
-        result = run_experiment(cfg, step_timing=True)
+        result = (run or run_experiment)(cfg, step_timing=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
@@ -1772,7 +1822,12 @@ def fused_plans(G: int, S: int, dims: list) -> None:
                   f"block; cudaOccupancyMaxActiveClusters {n}", flush=True)
 
 
-def phase_fused_wide():
+FUSED_WIDE = ((32, 512, [9, 128, 128, 128, 128, 10], True),
+              (2, 1024, [64, 16, 10], False))
+
+
+def phase_fused_wide(shapes=FUSED_WIDE, dtypes=None,
+                     kinds=("none", "bits", "seed"), tag: str = "[fused]"):
     """Both fused kernels against their plain versions at two more plans:
     S=512, hidden 128, 5 layers (configs/GCN/peptides_func_GCN_dp8.yaml's
     widths on the largest dense slot, G=32), and S=1024 with an input
@@ -1780,7 +1835,9 @@ def phase_fused_wide():
     the forward reads from global memory; random graphs of ~2 edges a
     node, float32 and bfloat16, all three dropout modes; the backward
     twice, equal bit for bit.  Prints the first shape's float32 seeded
-    warm times."""
+    warm times, the plain versions' beside.  ``shapes`` ((G, S, widths,
+    timed), ...), ``dtypes`` (default float32 and bfloat16), ``kinds`` and
+    the lines' ``tag`` for another path's shapes."""
     import torch
 
     from graph_hscn_tpu_torch.ops.fused_gcn import (folded_operator,
@@ -1789,14 +1846,13 @@ def phase_fused_wide():
                                                     fused_gcn_fwd,
                                                     fused_gcn_fwd_plain,
                                                     plain_reference)
-    for G, S, dims, timed in ((32, 512, [9, 128, 128, 128, 128, 10], True),
-                              (2, 1024, [64, 16, 10], False)):
+    for G, S, dims, timed in shapes:
         fused_plans(G, S, dims)
         gen = torch.Generator(device="cuda").manual_seed(6)
         adj = torch.rand(G, S, S, device="cuda", generator=gen) < 2.0 / S
         adj = (adj | adj.transpose(1, 2)).float()
         g_out = torch.randn(G, S, dims[-1], device="cuda", generator=gen)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes or (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
             name = str(dtype).replace("torch.", "")
             a_hat = folded_operator(adj).to(dtype).contiguous()
@@ -1810,7 +1866,7 @@ def phase_fused_wide():
             bits = [torch.randint(-2 ** 31, 2 ** 31, (G, S, f),
                                   device="cuda", dtype=torch.int32,
                                   generator=gen) for f in dims[1:-1]]
-            for kind in ("none", "bits", "seed"):
+            for kind in kinds:
                 r = 0.0 if kind == "none" else 0.1
                 drop = {"none": None, "bits": {"bits": bits},
                         "seed": {"seed": FUSED_SEED}}[kind]
@@ -1835,7 +1891,7 @@ def phase_fused_wide():
                         refs + [back_ref[0]] + back_ref[1] + back_ref[2]))
                 rounded = all(torch.equal(o, w) for o, w in
                               zip(outs + got[:1], refs + [back_ref[0]]))
-                line = (f"[fused] S={S} widths {dims} {name:8s} dropout "
+                line = (f"{tag} G={G} S={S} widths {dims} {name:8s} dropout "
                         f"{kind:4s}: forward and backward within "
                         f"{ratio:.3f} of tol {1e-5 if f32 else 1e-4:.0e}"
                         f"*max|ref|; outputs and dx bit for bit: {rounded}; "
@@ -1845,12 +1901,18 @@ def phase_fused_wide():
                         a_hat, x, ws, bs, r, drop))
                     bwd_ms, _ = time_ms(lambda: fused_gcn_bwd(
                         a_hat, x, ws, acts, g_out, r))
-                    fb, _ = fused_bound(G, S, dims, 4, "fwd", False)
-                    bb, _ = fused_bound(G, S, dims, 4, "bwd", False)
+                    fwd_plain, _ = time_ms(lambda: fused_gcn_fwd_plain(
+                        a_hat, x, ws, bs, r, drop))
+                    bwd_plain, _ = time_ms(lambda: fused_gcn_bwd_plain(
+                        a_hat, x, ws, acts, g_out, r))
+                    fb, fby = fused_bound(G, S, dims, 4, "fwd", False)
+                    bb, bby = fused_bound(G, S, dims, 4, "bwd", False)
                     line += (f"; device warm: fwd {fwd_ms * 1e3:.2f} us "
-                             f"(bound {fb * 1e3:.2f}), bwd "
+                             f"(bound {fb * 1e3:.2f}, {fby}; plain "
+                             f"{fwd_plain * 1e3:.2f}), bwd "
                              f"{bwd_ms * 1e3:.2f} us (bound "
-                             f"{bb * 1e3:.2f})")
+                             f"{bb * 1e3:.2f}, {bby}; plain "
+                             f"{bwd_plain * 1e3:.2f})")
                 print(line, flush=True)
 
 
@@ -3363,6 +3425,411 @@ def phase_edge_partition_runs() -> dict:
     return dict(launches)
 
 
+# --- [dp], [hybrid], [loader] -----------------------------------------------
+
+def run_dp(cfg, step_timing: bool = True):
+    """``fit_dp`` of ``cfg`` on a 1-rank NCCL group (run_experiment's
+    ``data_parallel``: the model and data as the runner builds them)."""
+    from graph_hscn_tpu_torch.runner import run_experiment
+    return run_experiment(cfg, step_timing=step_timing, data_parallel=True)
+
+
+def dp_global_batches(dm, split: str, seed: int | None):
+    """fit_dp's global batches of ``split`` at one rank (shuffled with
+    ``seed``, None: in order), packed as one batch each."""
+    from graph_hscn_tpu_torch.data.batching import PadBudget
+    from graph_hscn_tpu_torch.parallel.data_parallel import pack_for_devices
+    graphs = dm.split(split)
+    idx = np.arange(len(graphs))
+    if seed is not None:
+        np.random.default_rng(seed).shuffle(idx)
+    budget = PadBudget.for_dataset(dm.graphs, dm.batch_size)
+    for i in range(0, len(idx), dm.batch_size):
+        chunk = [graphs[int(j)] for j in idx[i:i + dm.batch_size]]
+        yield pack_for_devices(chunk, 1, budget, slot_nodes=dm.slot_nodes,
+                               with_spmm_plan=dm.with_spmm_plan)[0]
+
+
+def run_dp_reference(cfg, step_timing: bool = True):
+    """The single-device host ``fit`` on fit_dp's global batches (the
+    same model from the same seed): one rank's DP update is this
+    update."""
+    import torch
+
+    from graph_hscn_tpu_torch.runner import _data, _model, _setup_run
+    from graph_hscn_tpu_torch.train.loop import fit
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    device, dtype = _setup_run(cfg, torch.device("cuda"))
+    logger = Logger(metric_name=cfg.training.metric)
+    dm = _data(cfg, device, logger)
+    model = _model(cfg, dm, device, dtype, logger)
+    seed = cfg.training.seed
+    return fit(model,
+               lambda epoch: dp_global_batches(dm, "train", seed + epoch),
+               list(dp_global_batches(dm, "val", None)),
+               list(dp_global_batches(dm, "test", None)), cfg.optim,
+               cfg.training, logger, device,
+               compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+               step_timing=step_timing)
+
+
+def dp_profile(changes: dict, label: str) -> None:
+    """[dp] fit_dp's train step (pack_for_devices' one-rank batches,
+    uploaded beforehand) profiled on a 1-rank NCCL group: device busy
+    time, idle share, the kernels by device time."""
+    import torch
+
+    from graph_hscn_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.runner import _data, _model, _setup_run
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    cfg = load_with(DP8, changes)
+    device, dtype = _setup_run(cfg, torch.device("cuda"))
+    logger = Logger(metric_name=cfg.training.metric, quiet=True)
+    with process_group(device) as device:
+        dm = _data(cfg, device, logger)
+        model = _model(cfg, dm, device, dtype, logger)
+        opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                              cfg.optim.lr, cfg.optim.weight_decay)
+        step = make_dp_train_step(model, opt, cfg.training.loss_fn,
+                                  make_mesh(("data",), (1,), device))
+        batches = [b.to(device) for b in itertools.islice(
+            dp_global_batches(dm, "train", 0), 3)]
+        profile_steps(f"[dp] {label}", lambda b: step(b, 0),
+                      lambda i: batches[i % len(batches)],
+                      focus={"NCCL (the count's and the gradients' "
+                             "all_reduce)": ("nccl",)})
+
+
+def losses_agree(label: str, got, want, rtol: float) -> float:
+    """Every epoch's train, val and test loss of two fits within ``rtol``
+    relative; returns the largest relative difference."""
+    worst = 0.0
+    for a, b in zip(got.history, want.history, strict=True):
+        for key in ("train_loss", "validation_loss", "test_loss"):
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+            worst = max(worst, rel)
+    print(f"{label}: per-epoch losses' largest relative difference "
+          f"{worst:.3e} (limit {rtol:.0e})", flush=True)
+    if not worst <= rtol:
+        fail(f"{label}: losses differ by {worst:.3e} relative")
+    return worst
+
+
+def phase_dp() -> dict:
+    """[dp] configs/GCN/peptides_func_GCN_dp8.yaml's widths (global batch
+    128, hidden 128, 5 layers, slot 392) through fit_dp on a 1-rank NCCL
+    group, 2 epochs without dropout: the losses within 1e-5 relative of
+    the single-device fit on the same global batches; then its
+    runtime.fused_stack: on twin (fused_gcn_fwd/bwd) and its
+    runtime.dense_path: sparse twin (csr_spmm), launches counted; step ms,
+    idle share and peak memory of each; B1 at the sparse twin's first
+    batch (F = 128 and 10, forward and transpose) and B2f/B2b at the
+    fused twin's shape (G = 128, S = 392) against their plain versions.
+    Returns the runs' launches."""
+    import torch
+    from collections import Counter
+
+    from graph_hscn_tpu_torch.ops.spmm import gcn_norm_weights
+    from graph_hscn_tpu_torch.runner import _data
+    from graph_hscn_tpu_torch.utils.logger import Logger
+
+    launches = Counter()
+    got, dense, _, _ = train_run(DP8, no_launches, "dp", DP_ONE, run=run_dp)
+    launches.update(got)
+    ref = train_run(DP8, no_launches, "dp reference", DP_ONE,
+                    run=run_dp_reference)[1]
+    losses_agree("[dp] fit_dp at one rank against the single-device fit",
+                 dense, ref, 1e-5)
+    dp_profile(DP_ONE, "dense MPNN")
+    for changes, expected, label in ((DP_FUSED, fused_launches, "fused"),
+                                     (DP_SPARSE, voc_gcn_launches,
+                                      "sparse")):
+        launches.update(train_run(DP8, expected, "dp", changes,
+                                  run=run_dp)[0])
+        dp_profile(changes, label)
+    cfg = load_with(DP8, DP_SPARSE)
+    dm = _data(cfg, torch.device("cuda"), Logger(quiet=True))
+    b = next(dp_global_batches(dm, "train", cfg.training.seed)).to("cuda")
+    p = b.spmm
+    w, _ = gcn_norm_weights(b.senders, b.receivers, b.edge_mask,
+                            p.num_nodes)
+    print(f"[dp] sparse batch: N={p.num_nodes} E={p.col.numel()} real "
+          f"edges={p.num_edges} graphs={b.num_graphs_padded - 1}",
+          flush=True)
+    check_spmm_batch("dp sparse batch", p, w,
+                     [("forward", 128), ("transpose", 128), ("forward", 10),
+                      ("transpose", 10)])
+    G = load_with(DP8).data.batch_size
+    slot = _data(load_with(DP8, DP_ONE), torch.device("cuda"),
+                 Logger(quiet=True)).slot_nodes
+    phase_fused_wide(((G, slot, [9, 128, 128, 128, 128, 10], True),),
+                     dtypes=(torch.float32,), kinds=("none", "seed"),
+                     tag="[dp] fused")
+    return dict(launches)
+
+
+def hybrid_launches(cfg, steps, evals):
+    """fit_hybrid: the edge-partitioned counts (``ep_launches``), the GAT
+    with JAX's one head."""
+    if cfg.mpnn.conv_type.lower() == "gat":
+        cfg = copy.deepcopy(cfg)
+        cfg.mpnn.num_heads = 1
+    return ep_launches(cfg, steps, evals)
+
+
+def hybrid_setup(changes: dict, split: str, device, use_plan: bool):
+    """(cfg, the hybrid block of ``split`` on a (1, 1) mesh with its
+    info, the sharded model from seed 0) of the hybrid config."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.parallel.hybrid import (build_hybrid_split,
+                                                      hybrid_block)
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import build_sharded_model
+
+    cfg = load_with(HYBRID, changes)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    t0 = time.perf_counter()
+    plan, x, y, ok, meta = build_hybrid_split(dm.split(split), 1, 1,
+                                              cfg.mesh.locality_reorder)
+    conv = cfg.mpnn.conv_type.lower()
+    blk = hybrid_block(plan, x, y, ok, make_mesh(("data", "model"), (1, 1),
+                                                  device),
+                       use_plan, graph_ids=conv == "gps")
+    info = dict(rows=meta["node_mask"].shape[0], block_rows=meta[
+        "block_size"], edges=int(plan["mask_loc"].sum()),
+                halo_width=meta["halo_width"],
+                seconds=time.perf_counter() - t0)
+    dims = ([dm.num_features]
+            + [cfg.mpnn.hidden_channels] * (cfg.mpnn.num_layers - 1)
+            + [dm.num_classes])
+    model = build_sharded_model(
+        conv, dims, heads=cfg.mpnn.num_heads if conv == "gps" else 1,
+        generator=torch.Generator().manual_seed(0),
+        hidden=cfg.mpnn.hidden_channels)
+    return cfg, blk, info, model.to(device)
+
+
+def phase_hybrid_kernels() -> None:
+    """csr_spmm (B1, F = 64, forward and transpose, the block's GCN
+    weights) and spmm_mh / sddmm_mh (B6/B7 at the hybrid GAT's one head,
+    C = 64) at the hybrid config's train block on a (1, 1) mesh, against
+    their plain versions."""
+    import torch
+
+    from graph_hscn_tpu_torch.parallel.mesh import process_group
+    with process_group(torch.device("cuda")) as device:
+        _, blk, info, _ = hybrid_setup(HYBRID_ONE, "train", device, True)
+        p = blk.csr
+        print(f"[hybrid] train block: N_b={info['block_rows']} rows, "
+              f"{p.num_edges} local edges ({p.col.numel()} slots), "
+              f"H={info['halo_width']}, host plan {info['seconds']:.2f} s",
+              flush=True)
+        check_spmm_batch("hybrid block", p, blk.gcn_norm()[0],
+                         [("forward", 64), ("transpose", 64)])
+        for case in gat_cases(p, ((1, 64),), ((1, 64, torch.float32,
+                                               torch.float32),)):
+            if case["dtype"] == "float32":
+                time_case("[hybrid]", case)
+
+
+def hybrid_step_times(changes: dict, label: str, focus: dict) -> None:
+    """[hybrid] The hybrid model's full-batch train step on the train block
+    at a (1, 1) mesh (``loss_and_grads``, the all_reduce, AdamW),
+    profiled and then timed steady (``ep_step_times``)."""
+    import torch
+
+    from graph_hscn_tpu_torch.parallel.mesh import process_group
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import loss_and_grads
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    with process_group(torch.device("cuda")) as device:
+        cfg, blk, _, model = hybrid_setup(changes, "train", device, True)
+        opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                              cfg.optim.lr, cfg.optim.weight_decay)
+
+        def step(_):
+            model.train()
+            loss_and_grads(model, blk)
+            opt.step()
+
+        ep_step_times(f"hybrid {label}", step, focus, 6, 10)
+
+
+def phase_hybrid_reference(changes: dict, label: str) -> None:
+    """[reference] The hybrid model on the val split's block at a (1, 1)
+    mesh, the card (the kernels) against the CPU (plain versions), the
+    precision pinned to float32 and restored: logits within 1e-5 *
+    max|ref|, loss and gradients 1e-4 * max|ref| (``card_against_cpu``,
+    the activation decisions replayed: ``KinkPins``)."""
+    import torch
+
+    from graph_hscn_tpu_torch.parallel.mesh import process_group
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    set_matmul_precision("highest")
+    try:
+        outs, pins = {}, KinkPins()
+        with process_group(torch.device("cuda")) as device:
+            _, blk, info, model = hybrid_setup(changes, "val", device, True)
+            outs["cuda"] = reference_outputs(model, blk, pins.record())
+            state = {k: v.cpu() for k, v in model.state_dict().items()}
+        with process_group(torch.device("cpu")) as device:
+            _, blk, info, model = hybrid_setup(changes, "val", device,
+                                               False)
+            model.load_state_dict(state)
+            outs["cpu"] = reference_outputs(model, blk, pins.replay())
+        card_against_cpu(f"hybrid {label}", outs, pins, info,
+                         [name for name, _ in model.named_parameters()])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
+
+
+def phase_hybrid() -> dict:
+    """[hybrid] configs/GCN/voc_superpixels_GCN_hybrid.yaml at mesh.shape
+    [1, 1] (512 graphs, hidden 64, 4 layers) through run_experiment,
+    2 epochs, its snapshot scored by run_eval and main --eval --predict;
+    its GAT twin (one head) and its GPS twin (64 graphs); launches
+    counted (GCN 6 csr_spmm a train step, 3 an eval forward; GAT 6
+    spmm_mh + 3 sddmm_mh, 3; GPS none); the GCN and GAT train steps
+    profiled and timed steady; GCN and GAT card against CPU; B1 and B6/B7
+    at the block.  Returns the runs' launches."""
+    from collections import Counter
+    launches = Counter()
+    phase_hybrid_kernels()
+    directory = SCRATCH / "hybrid"
+    shutil.rmtree(directory, ignore_errors=True)
+    saved = {**HYBRID_ONE, "training.checkpoint_dir": str(directory)}
+    got, fit = train_run(HYBRID, hybrid_launches, "hybrid", saved)[:2]
+    launches.update(got)
+    for split, i in fit.partition.items():
+        print(f"[hybrid] GCN {split}: N_b={i['block_rows']} rows, "
+              f"E={i['edges']} real edges, H={i['halo_width']}, host plan "
+              f"{i['seconds']:.3f} s", flush=True)
+    launches.update(phase_eval(load_with(HYBRID, saved), fit.best_val_loss,
+                               hybrid_launches, evals=2))
+    phase_predict(HYBRID, directory, HYBRID_ONE)
+    launches.update(train_run(HYBRID, hybrid_launches, "hybrid",
+                              HYBRID_GAT)[0])
+    launches.update(train_run(HYBRID, hybrid_launches, "hybrid",
+                              HYBRID_GPS)[0])
+    hybrid_step_times(HYBRID_ONE, "GCN", GCN_FOCUS)
+    hybrid_step_times(HYBRID_GAT, "GAT", GAT_FOCUS)
+    phase_hybrid_reference(HYBRID_ONE, "GCN")
+    phase_hybrid_reference(HYBRID_GAT, "GAT")
+    return dict(launches)
+
+
+def jax_order_batches(dm, seed: int) -> list:
+    """The train batches of the JAX package's PrefetchLoader for an epoch
+    of ``seed``, by their definition: the split shuffled by
+    ``default_rng(seed)``, cut into ``batch_size`` chunks, each packed
+    with the single budget (a chunk over it split in halves)."""
+    from graph_hscn_tpu_torch.data.batching import pack_batch
+
+    def pack(chunk):
+        try:
+            return [pack_batch(chunk, dm.budget, slot_nodes=dm.slot_nodes,
+                               with_spmm_plan=dm.with_spmm_plan)]
+        except ValueError:
+            mid = len(chunk) // 2
+            return pack(chunk[:mid]) + pack(chunk[mid:])
+
+    graphs = dm.split("train")
+    idx = np.arange(len(graphs))
+    np.random.default_rng(seed).shuffle(idx)
+    return [b for i in range(0, len(idx), dm.batch_size)
+            for b in pack([graphs[int(j)]
+                           for j in idx[i:i + dm.batch_size]])]
+
+
+def loader_epoch_profile(dm, cfg, label: str) -> None:
+    """[loader] One train epoch of the host loop on ``dm.train_batches``
+    (uploads on the main thread) under the profiler, after one unprofiled
+    epoch: wall, device busy time and idle share a step."""
+    import torch
+
+    from graph_hscn_tpu_torch.runner import _model
+    from graph_hscn_tpu_torch.train.loop import make_train_step
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    model = _model(cfg, dm, torch.device("cuda"), None, Logger(quiet=True))
+    opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                          cfg.optim.lr, cfg.optim.weight_decay)
+    step, _ = make_train_step(model, opt, cfg.training.loss_fn,
+                              node_level=True,
+                              generator=torch.Generator(device="cuda"))
+    count = []
+
+    def epoch():
+        count.clear()
+        for b in dm.train_batches(epoch_seed=dm.seed):
+            step(b.to("cuda"))
+            count.append(1)
+
+    epoch()
+    torch.cuda.synchronize()
+    dev, wall_ms = profiled(epoch, 1)
+    report_profile(label, dev, wall_ms, len(count), "train steps (one "
+                   "epoch, packing included)")
+
+
+def phase_loader(workers0_median: float) -> dict:
+    """[loader] configs/GCN/voc_superpixels_GCN_sparse.yaml with
+    data.num_workers 2: two epochs' train batches equal, array for array
+    (the CSR plans' too), to the JAX package's PrefetchLoader order
+    (``jax_order_batches``); the host fit (run_experiment, 2 epochs) with
+    its csr_spmm launches counted, its median step ms beside the
+    num_workers 0 run's (``workers0_median``); an epoch of each profiled.
+    Returns the run's launches."""
+    import dataclasses
+
+    import torch
+
+    from graph_hscn_tpu_torch.runner import _data
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    cfg = load_with(CONFIG, {"data.num_workers": 2})
+    dm = _data(cfg, torch.device("cuda"), Logger(quiet=True))
+    for seed in (dm.seed, dm.seed + 1):
+        got = list(dm.train_batches(epoch_seed=seed))
+        want = jax_order_batches(dm, seed)
+        if len(got) != len(want):
+            fail(f"[loader] {len(got)} batches, the JAX order {len(want)}")
+        for a, b in zip(got, want):
+            for f in dataclasses.fields(a):
+                u, v = getattr(a, f.name), getattr(b, f.name)
+                if f.name == "spmm":
+                    same = all(np.array_equal(np.asarray(getattr(u, g.name)),
+                                              np.asarray(getattr(v, g.name)))
+                               for g in dataclasses.fields(u))
+                else:
+                    same = (u is None and v is None) or np.array_equal(u, v)
+                if not same:
+                    fail(f"[loader] epoch seed {seed}: field {f.name} "
+                         "differs from the JAX order's")
+        print(f"[loader] epoch seed {seed}: {len(got)} batches equal, array "
+              "for array (CSR plans included), to the JAX PrefetchLoader "
+              "order (node targets and a CSR plan: numpy packs, not the "
+              "native batcher)", flush=True)
+    launches, _, median, _ = train_run(CONFIG, voc_gcn_launches, "loader",
+                                       {"data.num_workers": 2})
+    print(f"[loader] median train step ms (synchronised host clock): "
+          f"num_workers 2 {median:.3f}, num_workers 0 "
+          f"{workers0_median:.3f} (the [train] run above)", flush=True)
+    for workers in (0, 2):
+        dm.num_workers = workers
+        loader_epoch_profile(dm, cfg, f"[loader] VOC sparse GCN, "
+                                      f"num_workers {workers}")
+    return launches
+
+
+
 def main() -> int:
     if not (REPO / "graph_hscn_tpu_torch" / "csrc").is_dir():
         fail(f"{REPO} holds no graph_hscn_tpu_torch package: run the script "
@@ -3389,7 +3856,7 @@ def main() -> int:
     # Each path's launches, counted from its own run alone.
     # The device-resident configs (capture_run) train captured, then
     # eagerly beside.
-    launches = train_run(CONFIG, voc_gcn_launches)[0]
+    launches, _, voc_median, _ = train_run(CONFIG, voc_gcn_launches)
     capture_run(PEPTIDES, no_launches)
     fused = capture_run(PEPTIDES_FUSED, fused_launches)
     gat = train_run(VOC_GAT, voc_gat_launches)[0]
@@ -3460,7 +3927,18 @@ def main() -> int:
     ep = phase_edge_partition_runs()
     print(f"[time] the edge-partition phases: "
           f"{t_ep + time.perf_counter() - t0:.1f} s wall", flush=True)
-    for counts in (voc, fused_fit, *evals, ep):
+    t0 = time.perf_counter()
+    dp = phase_dp()
+    print(f"[time] [dp]: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    t0 = time.perf_counter()
+    hybrid = phase_hybrid()
+    print(f"[time] [hybrid]: {time.perf_counter() - t0:.1f} s wall",
+          flush=True)
+    t0 = time.perf_counter()
+    loader = phase_loader(voc_median)
+    print(f"[time] [loader]: {time.perf_counter() - t0:.1f} s wall",
+          flush=True)
+    for counts in (voc, fused_fit, *evals, ep, dp, hybrid, loader):
         for kernel, n in counts.items():
             launches[kernel] += n
     for k in kernels:

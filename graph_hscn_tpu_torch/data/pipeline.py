@@ -6,6 +6,8 @@ loader.py:63-108, load_dataset + get_loader).  Data source resolution order:
   2. deterministic synthetic generator (data/synthetic.py).
 
 Batches are numpy ``GraphBatch``es; the train loop moves each to the device.
+With ``data.num_workers > 0`` the train batches are packed ahead on a
+worker thread (data/loader.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from graph_hscn_tpu_torch.data import synthetic
 from graph_hscn_tpu_torch.data.batching import (GraphData, PadBudget,
                                                 bucketed_budgets,
                                                 iter_batches, pack_batch)
+from graph_hscn_tpu_torch.data.loader import PrefetchLoader
 from graph_hscn_tpu_torch.data.structures import GraphBatch
 
 _SYNTH = {
@@ -97,9 +100,14 @@ class DataModule:
                           " (background packing is single-budget); using"
                           " inline bucketed packing.", stacklevel=2)
         elif self.num_workers > 0:
-            raise NotImplementedError(
-                "data.num_workers > 0 (PrefetchLoader, data/loader.py): "
-                "ROADMAP queue A, item 1")
+            # The reference DataLoader's num_workers (loader.py:57-58):
+            # packing ahead on a worker thread, the native batcher where
+            # it applies.
+            loader = PrefetchLoader(
+                self.split("train"), self.batch_size, self.budget,
+                shuffle=True, seed=seed, slot_nodes=self.slot_nodes,
+                with_spmm_plan=self.with_spmm_plan)
+            return loader.epoch(seed)
         rng = np.random.default_rng(seed)
         return iter_batches(self.split("train"), self.batch_size,
                             self._budgets(), shuffle=True, rng=rng,

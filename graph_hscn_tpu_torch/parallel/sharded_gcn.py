@@ -82,7 +82,11 @@ class Block:
     send_idx [D*H], snd/rcv/m_loc [El] (local senders), snd/rcv/m_hal [Eh]
     (senders in the halo table); ``csr``: the local edges' ``CsrPlan``, or
     None where the kernels do not run; ``real_rows``: the split's real
-    rows over every rank (the loss's divisor).  Where the model needs
+    rows over every rank (the loss's divisor); ``group``: the ranks the
+    halo exchange (and GPS's ring) spans; ``split_group``: the ranks whose
+    blocks make up the split, over which the loss and gradients are summed
+    and the logits gathered (``group`` on a 1-D mesh, every rank on the
+    hybrid 2-D one, parallel/hybrid.py).  Where the model needs
     them (``extra``, host arrays already in this rank's layout):
     ``e_loc`` [El, Fe] / ``e_hal`` [Eh, Fe] edge features (GatedGCN, GPS's
     GatedGCN local), ``gid`` [Nb] graph ids (GPS), ``outdeg`` [Nb] the
@@ -91,7 +95,8 @@ class Block:
     EXTRA = ("e_loc", "e_hal", "gid", "outdeg")
 
     def __init__(self, plan: dict, x, y, ok, rank: int, real_rows: int,
-                 device, group, csr: CsrPlan | None, **extra):
+                 device, group, csr: CsrPlan | None, split_group=None,
+                 **extra):
         def idx(key):
             return torch.from_numpy(plan[key][rank].astype(np.int64)).to(
                 device)
@@ -113,6 +118,7 @@ class Block:
         self.csr = csr.to(device) if csr is not None else None
         self.real_rows = real_rows
         self.group = group
+        self.split_group = group if split_group is None else split_group
         for key in self.EXTRA:
             setattr(self, key, tensor(extra.get(key)))
         self._gcn_norm = {}
@@ -434,7 +440,7 @@ def loss_and_grads(model: nn.Module, blk: Block, *args) -> torch.Tensor:
         p.grad = None
     loss = local_loss(model(blk, *args), blk)
     loss.backward()
-    return all_reduce_grads(params, blk.group, loss.detach())
+    return all_reduce_grads(params, blk.split_group, loss.detach())
 
 
 @torch.no_grad()
@@ -443,7 +449,7 @@ def gather_logits(model: nn.Module, blk: Block, *args) -> torch.Tensor:
     forward on ``blk`` (and ``args``) in eval mode, the blocks
     all-gathered."""
     model.eval()
-    return all_gather_rows(model(blk, *args), blk.group)
+    return all_gather_rows(model(blk, *args), blk.split_group)
 
 
 @dataclasses.dataclass

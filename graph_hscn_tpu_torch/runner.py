@@ -1,7 +1,7 @@
 """Experiment runner: config -> data -> model -> training.
 
 The counterpart of ``graph_hscn_tpu/runner.py`` (the reference's
-run_train, main.py:85-120), its single-device paths:
+run_train, main.py:85-120):
 
   MPNN: the GCN, GAT or GIN ``MPNN``, ``GatedGCNNet``, the GPS
         transformer ``GPSModel`` or the fused ``FusedDenseGCN``, trained
@@ -14,8 +14,12 @@ run_train, main.py:85-120), its single-device paths:
   mesh: ``mesh.edge_partition`` on a 1-D mesh: the sharded GCN, GIN,
         GAT, GatedGCN or ring-attention GPS over the ranks of a process
         group (parallel/sharded_gcn.py), or with ``hscn:`` the sharded
-        SCN clustering and HSCN (parallel/sharded_scn.py), one rank a
-        device; without a group the run makes a 1-rank one.
+        SCN clustering and HSCN (parallel/sharded_scn.py); on a 2-D mesh
+        the hybrid of graph groups and node blocks (parallel/hybrid.py);
+        a mesh of more than one rank without ``edge_partition`` trains
+        data-parallel (parallel/data_parallel.py).  One rank a device;
+        the group is the launcher's (``runtime.multihost``), or without
+        one the run makes a 1-rank one.
 
 With ``pe`` set, the eigen stats (and the frozen SignNet transform) come
 first, or the trainable SignNet wraps the model; with
@@ -23,15 +27,17 @@ first, or the trainable SignNet wraps the model; with
 is the eval-only mode of ``main.py --eval``.
 
 Execution paths are routed as in the JAX package (runner.py:49-61, :63-67,
-:71-118, :120-145 and :212-238); the paths of later slices raise
-``NotImplementedError`` naming their ROADMAP item, so no config falls
-through to a path it did not ask for.
+:71-118, :120-238, :322-360); the keys of later slices raise
+``NotImplementedError`` naming their ROADMAP item, so no config trains as
+if it had not set them.
 
 Runs on ``cuda`` unless the caller passes another device; without a card
 that raises.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -47,8 +53,12 @@ from graph_hscn_tpu_torch.models.fused_gcn import FusedDenseGCN
 from graph_hscn_tpu_torch.models.layers import resolve_dtype
 from graph_hscn_tpu_torch.models.mpnn import build_mpnn
 from graph_hscn_tpu_torch.ops import spmm as spmm_mod
-from graph_hscn_tpu_torch.parallel.mesh import (make_mesh, process_group,
-                                                resolve_mesh_shape, this_rank)
+from graph_hscn_tpu_torch.parallel.data_parallel import fit_dp
+from graph_hscn_tpu_torch.parallel.hybrid import fit_hybrid
+from graph_hscn_tpu_torch.parallel.mesh import (launcher_env, make_mesh,
+                                                process_group,
+                                                resolve_mesh_shape, this_rank,
+                                                world_size)
 from graph_hscn_tpu_torch.parallel.sharded_gcn import fit_edge_partitioned
 from graph_hscn_tpu_torch.parallel.sharded_scn import \
     fit_hscn_edge_partitioned
@@ -89,10 +99,6 @@ def _refuse_later_slices(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             "runtime.profile_dir (utils/profiling.py:trace): ROADMAP queue "
             "A, item 12")
-    if rt.multihost == "on":
-        raise NotImplementedError(
-            "runtime.multihost: on (utils/profiling.py:"
-            "maybe_init_distributed): ROADMAP queue A, item 11.4")
 
 
 def _setup_run(cfg: ExperimentConfig, device) -> tuple:
@@ -112,14 +118,22 @@ def _checkpointer(cfg: ExperimentConfig) -> Checkpointer | None:
 
 
 def run_experiment(cfg: ExperimentConfig, device=None, log_file=None,
-                   step_timing: bool = False) -> FitResult:
+                   step_timing: bool = False,
+                   data_parallel: bool = False) -> FitResult:
+    """Train ``cfg`` on ``device``, routed as the JAX runner routes it.
+    ``data_parallel`` (no config key) takes ``fit_dp`` even on one rank:
+    the yardstick that ``chip_smoke.py`` holds against the single-device
+    fit and ``parallel/compare_ranks.py`` against D ranks."""
     _refuse_later_slices(cfg)
+    # "on" without a launcher's variables raises here, before any work.
+    launcher_env(cfg.runtime.multihost)
     device, compute_dtype = _setup_run(cfg, device)
     logger = Logger(log_file=log_file, metric_name=cfg.training.metric,
                     use_wandb=cfg.training.use_wandb,
-                    quiet=this_rank() != 0)
+                    quiet=this_rank(cfg.runtime.multihost) != 0)
     try:
-        return _run(cfg, device, compute_dtype, logger, step_timing)
+        return _run(cfg, device, compute_dtype, logger, step_timing,
+                    data_parallel)
     finally:
         logger.finish()
 
@@ -192,16 +206,41 @@ def _model(cfg: ExperimentConfig, dm, device, compute_dtype, logger,
     return model.to(device)
 
 
-def _mesh_shape(cfg: ExperimentConfig, dm) -> list[int] | None:
-    """The mesh route's shape, None for a single-device run.  The routes
-    not ported raise, naming their ROADMAP item; the rest is JAX's checks
-    (runner.py:151-177)."""
-    shape = resolve_mesh_shape(cfg.mesh.shape)
+def _needs_group(cfg: ExperimentConfig, eval_mode: bool = False) -> bool:
+    """Whether the run takes a mesh route (JAX's runner.py:84-94 and
+    :151-206; ``run_eval`` only with ``edge_partition``, runner.py:322)
+    or joins a launcher's group anyway (``runtime.multihost: on``)."""
+    if cfg.hscn is not None or eval_mode:
+        return bool(cfg.mesh.edge_partition)
+    shape = resolve_mesh_shape(cfg.mesh.shape,
+                               world_size(cfg.runtime.multihost))
+    return (int(np.prod(shape)) > 1 or cfg.mesh.edge_partition
+            or cfg.runtime.multihost == "on")
+
+
+def _group_for(cfg: ExperimentConfig, device, eval_mode: bool = False):
+    """The process group of a run that needs one (:func:`_needs_group`),
+    made as ``runtime.multihost`` says; a plain run keeps ``device``."""
+    if _needs_group(cfg, eval_mode):
+        return process_group(device, cfg.runtime.multihost)
+    return contextlib.nullcontext(device)
+
+
+def _mesh_route(cfg: ExperimentConfig, dm, eval_mode: bool = False
+                ) -> tuple[str | None, list[int]]:
+    """(route, shape): the mesh route JAX's runner picks
+    (runner.py:84-94, :151-206; in ``run_eval`` :322-360), None for a
+    single-device run; "dp" (``fit_dp``), "edge" (the 1-D edge partition,
+    or an HSCN's), "hybrid" (``fit_hybrid``).  Raises JAX's ValueErrors:
+    too few ranks, a graph-level task or a trainable SignNet on an
+    edge-partitioned path, a 2-D HSCN mesh."""
+    world = world_size(cfg.runtime.multihost)
+    shape = resolve_mesh_shape(cfg.mesh.shape, world)
     if cfg.hscn is not None:
         # JAX's HSCN takes the mesh only with edge_partition, and then
         # even on one device (runner.py:84-94).
         if not cfg.mesh.edge_partition:
-            return None
+            return None, shape
         if dm.task_level != "node":
             raise ValueError("mesh.edge_partition targets node-level tasks "
                              "(giant-graph full-batch training)")
@@ -211,17 +250,17 @@ def _mesh_shape(cfg: ExperimentConfig, dm) -> list[int] | None:
             raise ValueError("edge-partitioned paths support PE only as the "
                              "precomputed transform; set "
                              "compat.frozen_random_signnet: true")
-        return shape
-    if int(np.prod(shape)) == 1 and not cfg.mesh.edge_partition:
-        return None
+        return "edge", shape
+    size = int(np.prod(shape))
+    # edge_partition is honoured on one device too; a data-parallel config
+    # is scored on one device by run_eval.
+    if not cfg.mesh.edge_partition and (size == 1 or eval_mode):
+        return None, shape
+    if world < size:
+        raise ValueError(f"mesh.shape={shape} needs {size} devices, "
+                         f"have {world}")
     if not cfg.mesh.edge_partition:
-        raise NotImplementedError(
-            f"data-parallel mesh.shape {shape} (parallel/data_parallel.py:"
-            "fit_dp): ROADMAP queue A, item 11.4")
-    if len(shape) != 1:
-        raise NotImplementedError(
-            f"2-D mesh.shape {shape} (parallel/hybrid.py:fit_hybrid): "
-            "ROADMAP queue A, item 11.4")
+        return "dp", shape
     if dm.task_level != "node":
         raise ValueError("mesh.edge_partition targets node-level tasks "
                          "(giant-graph full-batch training)")
@@ -231,70 +270,100 @@ def _mesh_shape(cfg: ExperimentConfig, dm) -> list[int] | None:
         raise ValueError("edge-partitioned paths support PE only as the "
                          "precomputed transform; set "
                          "compat.frozen_random_signnet: true")
-    return shape
+    return ("hybrid" if len(shape) == 2 else "edge"), shape
 
 
-def _edge_partitioned(cfg: ExperimentConfig, dm, shape, device,
+def _edge_partitioned(cfg: ExperimentConfig, dm, route: str, shape, device,
                       compute_dtype, logger, **kwargs):
-    """``fit_edge_partitioned`` (or for an HSCN config
-    ``fit_hscn_edge_partitioned``) on a mesh of ``shape`` over the process
-    group (made for the run when none exists)."""
-    with process_group(device) as device:
-        mesh = make_mesh(tuple(cfg.mesh.axes), tuple(shape), device)
-        if cfg.hscn is not None:
-            logger.info(f"Edge-partitioned HSCN pipeline over {mesh.size} "
-                        f"ranks on {device} (sharded SCN clustering + "
-                        f"halo-exchange hetero conv, {dist.get_backend()}).")
-            return fit_hscn_edge_partitioned(
-                dm, mesh, cfg.hscn, cfg.optim, cfg.training, logger,
-                checkpointer=_checkpointer(cfg),
-                reorder=cfg.mesh.locality_reorder,
-                vv_pattern=("triangular" if cfg.compat.vv_triangular_pattern
-                            else "clique"),
-                dtype=compute_dtype, **kwargs)
-        logger.info(f"Edge-partitioned {cfg.mpnn.conv_type} over "
-                    f"{mesh.size} ranks on {device} (halo exchange, "
-                    f"{dist.get_backend()}).")
-        return fit_edge_partitioned(
-            dm, mesh, cfg.mpnn, cfg.optim, cfg.training, logger,
-            checkpointer=_checkpointer(cfg),
-            reorder=cfg.mesh.locality_reorder, dtype=compute_dtype,
-            **kwargs)
-
-
-def _run(cfg, device, compute_dtype, logger, step_timing) -> FitResult:
-    dm = _data(cfg, device, logger)
-    node_level = dm.task_level == "node"
-    shape = _mesh_shape(cfg, dm)
-    if shape is not None:
-        return _edge_partitioned(cfg, dm, shape, device, compute_dtype,
-                                 logger, step_timing=step_timing)
+    """``fit_edge_partitioned``, for an HSCN config
+    ``fit_hscn_edge_partitioned``, or on a 2-D mesh ``fit_hybrid``, on a
+    mesh of ``shape`` over the default process group."""
+    mesh = make_mesh(tuple(cfg.mesh.axes), tuple(shape), device)
+    if route == "hybrid":
+        logger.info(f"Hybrid {shape[0]}x{shape[1]} training (axes "
+                    f"{list(cfg.mesh.axes)}: DP groups x halo-exchange edge "
+                    f"partition, {dist.get_backend()}).")
+        return fit_hybrid(dm, mesh, cfg.mpnn, cfg.optim, cfg.training,
+                          logger, checkpointer=_checkpointer(cfg),
+                          reorder=cfg.mesh.locality_reorder, **kwargs)
     if cfg.hscn is not None:
-        return run_hscn_pipeline(
-            cfg, dm, logger, device, compute_dtype,
-            use_device_dataset=_use_device_dataset(cfg, dm),
-            step_timing=step_timing, checkpointer=_checkpointer(cfg))
-    model = _model(cfg, dm, device, compute_dtype, logger)
-    if _use_device_dataset(cfg, dm):
-        logger.info("Device-resident dataset path on.")
-        return fit_device(
-            model, dm.split("train"), dm.split("val"), dm.split("test"),
-            batch_size=cfg.data.batch_size, optim_cfg=cfg.optim,
-            training_cfg=cfg.training, logger=logger, device=device,
-            node_level=node_level,
+        logger.info(f"Edge-partitioned HSCN pipeline over {mesh.size} "
+                    f"ranks on {device} (sharded SCN clustering + "
+                    f"halo-exchange hetero conv, {dist.get_backend()}).")
+        return fit_hscn_edge_partitioned(
+            dm, mesh, cfg.hscn, cfg.optim, cfg.training, logger,
+            checkpointer=_checkpointer(cfg),
+            reorder=cfg.mesh.locality_reorder,
+            vv_pattern=("triangular" if cfg.compat.vv_triangular_pattern
+                        else "clique"),
+            dtype=compute_dtype, **kwargs)
+    logger.info(f"Edge-partitioned {cfg.mpnn.conv_type} over "
+                f"{mesh.size} ranks on {device} (halo exchange, "
+                f"{dist.get_backend()}).")
+    return fit_edge_partitioned(
+        dm, mesh, cfg.mpnn, cfg.optim, cfg.training, logger,
+        checkpointer=_checkpointer(cfg),
+        reorder=cfg.mesh.locality_reorder, dtype=compute_dtype, **kwargs)
+
+
+def _data_parallel(cfg: ExperimentConfig, dm, model, device, logger,
+                   shape, step_timing: bool = False) -> FitResult:
+    """``fit_dp`` of ``model`` (on ``device``) over a mesh of ``shape`` on
+    the default process group."""
+    mesh = make_mesh(tuple(cfg.mesh.axes), tuple(shape), device)
+    logger.info(f"Data-parallel training over {mesh.size} ranks "
+                f"(mesh axes {list(cfg.mesh.axes)}, {dist.get_backend()}).")
+    return fit_dp(model, dm, mesh, cfg.optim, cfg.training, logger,
+                  node_level=dm.task_level == "node",
+                  compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+                  checkpointer=_checkpointer(cfg), step_timing=step_timing)
+
+
+def _run(cfg, device, compute_dtype, logger, step_timing,
+         data_parallel: bool = False) -> FitResult:
+    group = (process_group(device, cfg.runtime.multihost) if data_parallel
+             else _group_for(cfg, device))
+    with group as device:
+        dm = _data(cfg, device, logger)
+        route, shape = _mesh_route(cfg, dm)
+        if data_parallel:
+            if route not in (None, "dp") or cfg.hscn is not None:
+                raise ValueError("data_parallel takes an MPNN config "
+                                 "without mesh.edge_partition")
+            route = "dp"
+        if route in ("edge", "hybrid"):
+            return _edge_partitioned(cfg, dm, route, shape, device,
+                                     compute_dtype, logger,
+                                     step_timing=step_timing)
+        if cfg.hscn is not None:
+            return run_hscn_pipeline(
+                cfg, dm, logger, device, compute_dtype,
+                use_device_dataset=_use_device_dataset(cfg, dm),
+                step_timing=step_timing, checkpointer=_checkpointer(cfg))
+        model = _model(cfg, dm, device, compute_dtype, logger)
+        if route == "dp":
+            return _data_parallel(cfg, dm, model, device, logger, shape,
+                                  step_timing)
+        if _use_device_dataset(cfg, dm):
+            logger.info("Device-resident dataset path on.")
+            return fit_device(
+                model, dm.split("train"), dm.split("val"), dm.split("test"),
+                batch_size=cfg.data.batch_size, optim_cfg=cfg.optim,
+                training_cfg=cfg.training, logger=logger, device=device,
+                node_level=dm.task_level == "node",
+                compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+                slot=dm.slot_nodes, step_timing=step_timing,
+                checkpointer=_checkpointer(cfg))
+        return fit(
+            model,
+            # Fresh batch composition every epoch (reference DataLoader
+            # shuffle=True semantics, loader.py:48-60).
+            lambda epoch: dm.train_batches(epoch_seed=dm.seed + epoch),
+            dm.eval_batches("val"), dm.eval_batches("test"),
+            cfg.optim, cfg.training, logger, device,
+            node_level=dm.task_level == "node",
             compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-            slot=dm.slot_nodes, step_timing=step_timing,
-            checkpointer=_checkpointer(cfg))
-    return fit(
-        model,
-        # Fresh batch composition every epoch (reference DataLoader
-        # shuffle=True semantics, loader.py:48-60).
-        lambda epoch: dm.train_batches(epoch_seed=dm.seed + epoch),
-        dm.eval_batches("val"), dm.eval_batches("test"),
-        cfg.optim, cfg.training, logger, device,
-        node_level=node_level,
-        compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-        step_timing=step_timing, checkpointer=_checkpointer(cfg))
+            step_timing=step_timing, checkpointer=_checkpointer(cfg))
 
 
 def run_eval(cfg: ExperimentConfig, which: str = "best", device=None,
@@ -316,45 +385,52 @@ def run_eval(cfg: ExperimentConfig, which: str = "best", device=None,
         raise ValueError("eval mode needs training.checkpoint_dir")
     device, compute_dtype = _setup_run(cfg, device)
     logger = Logger(log_file=log_file, metric_name=cfg.training.metric,
-                    quiet=this_rank() != 0)
+                    quiet=this_rank(cfg.runtime.multihost) != 0)
     try:
-        dm = _data(cfg, device, logger)
-        sink = {} if predict_out else None
-        shape = _mesh_shape(cfg, dm)
-        if shape is not None:
-            # The sharded forward restores the sharded model's snapshot
-            # (fit_edge_partitioned's eval-only mode); rank 0 writes.
-            results, meta = _edge_partitioned(
-                cfg, dm, shape, device, compute_dtype, logger,
-                eval_only=which, predictions_sink=sink)
-        else:
-            if cfg.hscn is not None:
-                model, _ = cluster_on_host(cfg, dm, logger, device,
-                                           compute_dtype)
-            else:
-                model = _model(cfg, dm, device, compute_dtype, logger,
-                               signnet_on_fused=False)
-            results, meta = evaluate_checkpoint(
-                model, {"val": dm.eval_batches("val"),
-                        "test": dm.eval_batches("test")},
-                cfg.training, Checkpointer(cfg.training.checkpoint_dir),
-                device, which=which, node_level=dm.task_level == "node",
-                compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-                predictions_sink=sink)
-        for split, m in results.items():
-            logger.info(f"[eval:{which}] {split}: " + ", ".join(
-                f"{k}={v:.4f}" for k, v in m.items()))
-        if meta:
-            logger.info(f"[eval:{which}] snapshot meta: {meta}")
-        if sink is not None and this_rank() == 0:
-            arrays = {f"{split}_{k}": v for split, d in sink.items()
-                      for k, v in d.items()}
-            np.savez(predict_out, **arrays)
-            logger.info(f"[predict] wrote {', '.join(sorted(arrays))} "
-                        f"to {predict_out}")
-        return results
+        with _group_for(cfg, device, eval_mode=True) as device:
+            return _eval(cfg, which, device, compute_dtype, logger,
+                         predict_out)
     finally:
         logger.finish()
+
+
+def _eval(cfg, which, device, compute_dtype, logger, predict_out) -> dict:
+    dm = _data(cfg, device, logger)
+    sink = {} if predict_out else None
+    route, shape = _mesh_route(cfg, dm, eval_mode=True)
+    if route is not None:
+        # The sharded forward restores the sharded model's snapshot
+        # (fit_edge_partitioned's or fit_hybrid's eval-only mode).
+        results, meta = _edge_partitioned(
+            cfg, dm, route, shape, device, compute_dtype, logger,
+            eval_only=which, predictions_sink=sink)
+    else:
+        if cfg.hscn is not None:
+            model, _ = cluster_on_host(cfg, dm, logger, device,
+                                       compute_dtype)
+        else:
+            model = _model(cfg, dm, device, compute_dtype, logger,
+                           signnet_on_fused=False)
+        results, meta = evaluate_checkpoint(
+            model, {"val": dm.eval_batches("val"),
+                    "test": dm.eval_batches("test")},
+            cfg.training, Checkpointer(cfg.training.checkpoint_dir),
+            device, which=which, node_level=dm.task_level == "node",
+            compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+            predictions_sink=sink)
+    for split, m in results.items():
+        logger.info(f"[eval:{which}] {split}: " + ", ".join(
+            f"{k}={v:.4f}" for k, v in m.items()))
+    if meta:
+        logger.info(f"[eval:{which}] snapshot meta: {meta}")
+    if sink is not None and this_rank() == 0:
+        # Rank 0 writes.
+        arrays = {f"{split}_{k}": v for split, d in sink.items()
+                  for k, v in d.items()}
+        np.savez(predict_out, **arrays)
+        logger.info(f"[predict] wrote {', '.join(sorted(arrays))} "
+                    f"to {predict_out}")
+    return results
 
 
 def _use_fused_stack(cfg: ExperimentConfig, dm, device) -> bool:

@@ -1,12 +1,14 @@
-"""The parent's side of the port's edge-partition tests
-(tests/test_torch_sharded_*.py, tests/test_torch_edge_partition.py): a
+"""The parent's side of the port's mesh tests
+(tests/test_torch_sharded_*.py, tests/test_torch_edge_partition.py,
+tests/test_torch_data_parallel.py, tests/test_torch_hybrid.py): a
 VOC-superpixels batch packed by the JAX package (with edge features and
 graph ids where asked), JAX's init of the sharded GCN, GIN, GAT,
 GatedGCN, GPS, SCN and HSCN and its ``make_sharded_*`` programs at D
 devices of the CPU mesh (forward, ``value_and_grad``, AdamW steps), their
 outputs named as the port's parameters (``models/convert.py``); and the
 checks that hold the port's ranks (``tests/torch_dist.py``) against
-them."""
+them; JAX's data-parallel step (:func:`dp_reference`) and hybrid programs
+(:func:`hybrid_reference`) at a mesh of the CPU's devices."""
 
 from __future__ import annotations
 
@@ -398,3 +400,108 @@ def follow_jax(raw: dict, D: int, tmp_path, monkeypatch) -> dict:
         assert 0 < z[f"{split}_scores"].shape[0] < rows
         assert np.isfinite(z[f"{split}_scores"]).all()
     return outs[0]
+
+
+def dp_reference(jmodel, params, graphs, D: int, budget, slot, loss_fn: str,
+                 node_level: bool, convert, steps: int = 3, lr: float = 0.01,
+                 weight_decay: float = 5e-4, evaluate: bool = False) -> dict:
+    """JAX's ``make_dp_train_step`` at D devices of the CPU mesh from
+    ``params`` on ``pack_for_devices(graphs, D, budget, slot)``: the loss
+    and the summed gradients (one SGD step of lr 1: the weights' change),
+    ``steps`` AdamW steps' losses and final weights, with ``evaluate``
+    ``make_dp_eval_step``'s loss; gradients and weights as the port's
+    state_dict (``convert``)."""
+    from graph_hscn_tpu.parallel import data_parallel as jdp
+    from graph_hscn_tpu.train.loop import TrainState
+
+    mesh = make_mesh(("data",), (D,), devices=jax.devices()[:D])
+    batch = jdp.shard_stacked_batch(
+        jdp.pack_for_devices(graphs, D, budget, slot_nodes=slot), mesh)
+
+    def state(tx):
+        return TrainState(params=params, opt_state=tx.init(params),
+                          step=jnp.zeros((), jnp.int32),
+                          rng=jax.random.PRNGKey(0))
+
+    def port(tree):
+        return {k: v.numpy() for k, v in convert(
+            jax.tree_util.tree_map(np.asarray, tree)).items()}
+
+    sgd = optax.sgd(1.0)
+    moved, loss, *_ = jdp.make_dp_train_step(jmodel, sgd, loss_fn, mesh,
+                                             node_level)(state(sgd), batch)
+    out = {"loss": float(loss), "grads": port(jax.tree_util.tree_map(
+        lambda a, b: np.asarray(a) - np.asarray(b), params, moved.params))}
+    if evaluate:
+        out["eval_loss"] = float(jdp.make_dp_eval_step(
+            jmodel, loss_fn, mesh, node_level)(params, batch)[0])
+    tx = build_optimizer("adamW", lr, weight_decay)
+    st, step, losses = state(tx), jdp.make_dp_train_step(
+        jmodel, tx, loss_fn, mesh, node_level), []
+    for _ in range(steps):
+        st, loss, *_ = step(st, batch)
+        losses.append(float(loss))
+    out.update(step_losses=losses, final=port(st.params), init=port(params))
+    return out
+
+
+HYBRID_AXES = ("data", "model")
+
+
+def hybrid_reference(conv: str, params, graphs, shape, steps: int = 3,
+                     heads: int = 1) -> dict:
+    """JAX's hybrid program of ``conv`` ("gcn", "gat", "gps") at a 2-D
+    mesh of ``shape`` on the CPU's devices from ``params``, on JAX's
+    ``build_hybrid_split(graphs)``: logits [Ddp*Dep*Nb, C], the loss and
+    gradients (``grad_axes`` both axes), ``steps`` AdamW steps (port
+    names)."""
+    from graph_hscn_tpu.parallel.hybrid import build_hybrid_split
+    d_dp, d_ep = shape
+    mesh = make_mesh(HYBRID_AXES, (d_dp, d_ep),
+                     devices=jax.devices()[:d_dp * d_ep])
+    plan, x, y, ok, _ = build_hybrid_split(graphs, d_dp, d_ep)
+    kw = dict(axis="model", shard_axes=HYBRID_AXES, grad_axes=HYBRID_AXES)
+    if conv == "gps":
+        fw, vg_g = jsgps.make_sharded_gps(mesh, len(params["layers"]),
+                                          heads, **kw)
+        plan["ok_blocks"] = ok
+
+        def forward(p):
+            return fw(p, x, plan["gid_blocks"], ok, plan)
+
+        def vg(p):
+            return vg_g(p, x, plan["gid_blocks"], ok, plan, y)
+    else:
+        fw, vg_g = MAKE[conv](mesh, num_layers=len(params), **kw)
+
+        def forward(p):
+            return fw(p, x, plan)
+
+        def vg(p):
+            return vg_g(p, x, plan, y, ok)
+    logits = np.asarray(forward(params))
+    out = {"logits": logits.reshape(-1, logits.shape[-1])}
+    loss, grads = vg(params)
+    out["loss"], out["grads"] = float(loss), as_port(conv, grads)
+    out.update(adam_steps(conv, vg, params, steps))
+    return out
+
+
+def mpnn_init_state(raw: dict) -> dict:
+    """JAX's init of the config's MPNN (``training.seed``; the weights
+    depend on the input width alone, not on the example batch), as the
+    port's state_dict under "mpnn", for ``torch_dist.use_init``."""
+    from graph_hscn_tpu.data.pipeline import DataModule as JaxDataModule
+    from graph_hscn_tpu.models.mpnn import build_mpnn
+    from graph_hscn_tpu.train.loop import init_state as jax_init_state
+    from graph_hscn_tpu_torch.models.convert import mpnn_params_from_jax
+    cfg = jax_parse_config(copy.deepcopy(raw))
+    dm = JaxDataModule.from_config(cfg.data)
+    readout = "none" if dm.task_level == "node" else "mean"
+    model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
+                       compat=cfg.compat.double_relu, readout=readout)
+    example = pack_batch(dm.split("val")[:2], dm.budget)
+    params = jax_init_state(model, build_optimizer("adamW", 0.01, 5e-4),
+                            example, seed=cfg.training.seed).params
+    return {"mpnn": {k: v.numpy() for k, v in mpnn_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)).items()}}

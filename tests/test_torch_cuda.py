@@ -1508,3 +1508,145 @@ def test_sharded_model_on_the_card_matches_the_cpu(conv):
     for i, (ref, got) in enumerate(zip(outs["cpu"], outs["cuda"])):
         assert bool(got.isfinite().all())
         assert_close(got, ref, 1e-5 if i == 0 else 1e-4)
+
+
+# --- the data-parallel and hybrid meshes, the loader ------------------------
+
+def test_dp_step_on_the_card_is_the_single_device_step():
+    """fit_dp's train step on a 1-rank NCCL group against the single-device
+    train step (train/loop.py) on the same batch, both on the card, with
+    the sparse GCN's CSR plan (csr_spmm), under matmul_precision highest
+    (pinned, then restored): the loss and every gradient within
+    1e-5*max|ref|; 2 csr_spmm a layer each."""
+    need_card()
+    import copy
+
+    from graph_hscn_tpu_torch.data.synthetic import make_peptides_func
+    from graph_hscn_tpu_torch.models.mpnn import MPNN
+    from graph_hscn_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step, pack_for_devices)
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.loop import make_train_step
+    graphs = make_peptides_func(num_graphs=16, seed=3)
+    batch = pack_for_devices(graphs, 1, PadBudget.for_dataset(graphs, 16),
+                             with_spmm_plan=True)[0].to("cuda")
+    model = MPNN("gcn", "relu", 9, 64, 10, 3,
+                 generator=torch.Generator().manual_seed(1)).cuda()
+
+    class NoStep:
+        minibatches = 0
+
+        def zero_grad(self):
+            pass
+
+        def step(self, applies=None):
+            pass
+
+    prev = torch.get_float32_matmul_precision()
+    set_matmul_precision("highest")
+    outs = {}
+    try:
+        with process_group(torch.device("cuda")) as device:
+            dp = copy.deepcopy(model)
+            step = make_dp_train_step(dp, NoStep(), "cross_entropy",
+                                      make_mesh(("data",), (1,), device))
+            before = csr_spmm.launches
+            loss = step(batch, 0)[0]
+            torch.cuda.synchronize()
+            launched = csr_spmm.launches - before
+            outs["dp"] = [loss.reshape(1)] + [p.grad for p in dp.parameters()]
+        single = copy.deepcopy(model)
+        train_step, _ = make_train_step(single, NoStep(), "cross_entropy")
+        loss = train_step(batch)[0]
+        outs["single"] = [loss.reshape(1)] + [p.grad
+                                              for p in single.parameters()]
+    finally:
+        set_matmul_precision("highest" if prev == "highest" else "default")
+    assert launched == 2 * 3
+    for got, ref in zip(outs["dp"], outs["single"]):
+        assert_close(got, ref, 1e-5)
+
+
+@pytest.mark.parametrize("conv", ["gcn", "gat"])
+def test_hybrid_block_on_the_card_matches_the_cpu(conv):
+    """The hybrid GCN and GAT (one head, as fit_hybrid builds it; hidden
+    64) on a (1, 1) mesh over a 6-graph VOC split: the card (a 1-rank NCCL
+    group, the kernels on the block's CsrPlan) against the CPU (gloo, the
+    plain path) under matmul_precision highest (pinned, then restored):
+    logits within 1e-5*max|ref|, the loss and gradients within
+    1e-4*max|ref|; the kernels launched as the fit counts them."""
+    need_card()
+    import copy
+
+    from graph_hscn_tpu_torch.parallel.hybrid import (build_hybrid_split,
+                                                      hybrid_block)
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
+        build_sharded_model, gather_logits, loss_and_grads)
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    split = build_hybrid_split(make_voc_superpixels(num_graphs=6, seed=21),
+                               1, 1)
+    model = build_sharded_model(conv, [14, 64, 64, 21], heads=1,
+                                generator=torch.Generator().manual_seed(5))
+    kernels = {"gcn": (csr_spmm,), "gat": (spmm_mh, sddmm_mh)}[conv]
+    outs = {}
+    prev = torch.get_float32_matmul_precision()
+    set_matmul_precision("highest")
+    try:
+        for dev in ("cpu", "cuda"):
+            with process_group(torch.device(dev)) as device:
+                mesh = make_mesh(("data", "model"), (1, 1), device)
+                blk = hybrid_block(*split[:4], mesh, use_plan=dev == "cuda")
+                m = copy.deepcopy(model).to(device)
+                before = [k.launches for k in kernels]
+                logits = gather_logits(m, blk)
+                m.train()
+                loss = loss_and_grads(m, blk)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                launched = [k.launches - n for k, n in zip(kernels, before)]
+                outs[dev] = [logits, loss.reshape(1)] + [
+                    p.grad for p in m.parameters()]
+    finally:
+        set_matmul_precision("highest" if prev == "highest" else "default")
+    # Two layers of width 64: GCN forward, then forward + transpose; GAT
+    # one head of C = 64: spmm_mh forward, forward + dx, sddmm_mh d alpha.
+    assert launched == ([6] if conv == "gcn" else [6, 2])
+    for i, (ref, got) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        assert bool(got.isfinite().all())
+        assert_close(got, ref, 1e-5 if i == 0 else 1e-4)
+
+
+def test_prefetched_batches_train_as_inline_ones_on_the_card():
+    """Two epochs of the host fit on the card with data.num_workers 2 (the
+    worker packs, the main thread uploads) against the same fit on the
+    same batches packed inline beforehand: equal losses."""
+    need_card()
+    from graph_hscn_tpu_torch.config.config import load_config
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.models.mpnn import build_mpnn
+    from graph_hscn_tpu_torch.train.loop import fit
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    from pathlib import Path
+    cfg = load_config(Path(__file__).parents[1] / "configs" / "GCN"
+                      / "voc_superpixels_GCN_sparse.yaml")
+    cfg.data.num_graphs, cfg.data.num_workers = 40, 2
+    cfg.training.epochs, cfg.mpnn.dropout = 2, 0.0
+    dm = DataModule.from_config(cfg.data)
+    dm.with_spmm_plan = True
+    epochs = {e: list(dm.train_batches(epoch_seed=dm.seed + e))
+              for e in range(2)}
+    results = []
+    for source in ("loader", "inline"):
+        model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
+                           readout="none",
+                           generator=torch.Generator().manual_seed(3))
+        batches = ((lambda e: dm.train_batches(epoch_seed=dm.seed + e))
+                   if source == "loader" else (lambda e: epochs[e]))
+        results.append(fit(model.cuda(), batches, dm.eval_batches("val"),
+                           dm.eval_batches("test"), cfg.optim, cfg.training,
+                           Logger(quiet=True), "cuda", node_level=True))
+    for a, b in zip(*(r.history for r in results)):
+        assert a["train_loss"] == b["train_loss"]
+        assert a["validation_loss"] == b["validation_loss"]

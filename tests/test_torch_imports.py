@@ -35,8 +35,12 @@ def forbidden(module: str) -> bool:
 def test_sources_are_found():
     assert len(SOURCES) > 40
     assert ROOT / "graph_hscn_tpu_torch" / "runner.py" in SOURCES
-    for name in ("mesh", "edge_partition", "sharded_gcn"):
+    for name in ("mesh", "edge_partition", "sharded_gcn", "data_parallel",
+                 "hybrid", "dryrun"):
         assert (ROOT / "graph_hscn_tpu_torch" / "parallel"
+                / f"{name}.py") in SOURCES
+    for name in ("loader", "native"):
+        assert (ROOT / "graph_hscn_tpu_torch" / "data"
                 / f"{name}.py") in SOURCES
 
 

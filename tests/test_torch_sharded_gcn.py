@@ -23,9 +23,9 @@ masks differ across ranks and repeat for the same (seed, epoch).
 JAX's ``run_experiment`` from the same init: per-epoch train and val
 losses within 1e-4 relative.  A resumed run follows the uninterrupted one
 and ``run_eval`` scores its best snapshot (rtol 1e-5, atol 1e-6, JAX's
-criterion), with the predict export.  The mesh paths not ported raise,
-naming their ROADMAP item; GatedGCN and GPS, ported since, build and
-step on the same config.
+criterion), with the predict export.  JAX's refusals hold; GatedGCN,
+GPS and the hybrid 2-D mesh, ported since, build and step on the same
+config.
 """
 
 from pathlib import Path
@@ -183,8 +183,8 @@ def _graph_level(raw):
                                   hidden_channels=16, num_layers=2),
      None, None),
     (lambda raw: raw["mesh"].update(shape=[2], edge_partition=False),
-     NotImplementedError, "data-parallel.*item 11.4"),
-    (_hybrid, NotImplementedError, "2-D.*item 11.4"),
+     ValueError, r"mesh.shape=\[2\] needs 2 devices, have 1"),
+    (_hybrid, None, None),
     (_graph_level, ValueError, "node-level"),
     (lambda raw: raw.update(pe={"use": True}, compat={
         "frozen_random_signnet": False}), ValueError,
@@ -192,10 +192,11 @@ def _graph_level(raw):
 ], ids=["shape8", "layer_norm", "loss_fn", "gatedgcn", "gps", "dp",
         "hybrid", "graph_level", "trainable_signnet"])
 def test_mesh_refusals(change, error, match):
-    """As JAX refuses them (runner.py:151-177, sharded_gcn.py:334-348),
-    or, for the paths not ported, naming their ROADMAP item.  The convs
-    that raised until their slice (``error`` None: GatedGCN, GPS) build
-    and step instead: two epochs, finite losses."""
+    """As JAX refuses them (runner.py:151-177, sharded_gcn.py:334-348).
+    The paths that raised until their slice (``error`` None: GatedGCN,
+    GPS, the hybrid 2-D mesh) build and step instead: two epochs, finite
+    losses; a data-parallel mesh past the ranks raises JAX's
+    device-count ValueError."""
     raw = shrunk()
     raw["data"]["num_graphs"] = 8
     change(raw)

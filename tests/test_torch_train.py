@@ -178,16 +178,20 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
 # (tests/test_torch_posenc.py, tests/test_torch_checkpoint.py): their cases
 # left this list; the others keep their ids.
 @pytest.mark.parametrize("path,change,error,match", [
-    pytest.param("GCN/peptides_func_GCN_dp8.yaml", {}, NotImplementedError,
-                 "mesh", id="GCN/peptides_func_GCN_dp8.yaml-change2-mesh"),
+    # The data-parallel and hybrid meshes are ported
+    # (tests/test_torch_data_parallel.py, tests/test_torch_hybrid.py): a
+    # mesh past the devices raises JAX's ValueError, in both packages.
+    pytest.param("GCN/peptides_func_GCN_dp8.yaml", {"mesh.shape": [16]},
+                 ValueError, "needs 16 devices",
+                 id="GCN/peptides_func_GCN_dp8.yaml-change2-mesh"),
     # The edge-partitioned HSCN is ported (tests/test_torch_sharded_scn.py,
     # tests/test_torch_sharded_hscn.py): on the graph-level peptides
     # config it raises JAX's ValueError, in both packages.
     pytest.param("HSCN/peptides_func_HSCN.yaml", {"mesh.edge_partition": True},
                  ValueError, "node-level",
                  id="HSCN/peptides_func_HSCN.yaml-change4-HSCN"),
-    pytest.param("GCN/voc_superpixels_GCN_sparse.yaml", {"mesh.shape": [2]},
-                 NotImplementedError, "mesh",
+    pytest.param("GCN/voc_superpixels_GCN_sparse.yaml",
+                 {"mesh.shape": [16]}, ValueError, "needs 16 devices",
                  id="GCN/voc_superpixels_GCN_sparse.yaml-change5-mesh"),
     pytest.param("GCN/voc_superpixels_GCN_sparse.yaml",
                  {"runtime.debug_nans": True}, NotImplementedError,
@@ -198,15 +202,18 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
                  {"runtime.profile_dir": "trace"}, NotImplementedError,
                  "profile_dir.*item 12",
                  id="GCN/peptides_func_GCN.yaml-profile_dir"),
+    # runtime.multihost is ported: "on" without a launcher's variables
+    # raises, as JAX re-raises a failed initialize under "on".
     pytest.param("HSCN/peptides_func_HSCN.yaml",
-                 {"runtime.multihost": "on"}, NotImplementedError,
-                 "multihost.*item 11",
+                 {"runtime.multihost": "on"}, RuntimeError,
+                 "multihost: on",
                  id="HSCN/peptides_func_HSCN.yaml-multihost"),
 ])
 def test_run_experiment_later_slices_raise(path, change, error, match):
     """The paths of later slices raise NotImplementedError naming their
     ROADMAP item; a ValueError case is JAX's own refusal, which JAX's
-    run_experiment raises on the same config too."""
+    run_experiment raises on the same config too; "multihost: on" without
+    a launcher raises RuntimeError."""
     cfgs = [_small_cfg(ROOT / "configs" / path)]
     if error is ValueError:
         from graph_hscn_tpu.config.config import load_config as jax_load

@@ -1,6 +1,7 @@
 """Run a function of this module on D gloo ranks, one process each, for
-the port's edge-partition tests (tests/test_torch_edge_partition.py and
-tests/test_torch_sharded_*.py).
+the port's mesh tests (tests/test_torch_edge_partition.py,
+tests/test_torch_sharded_*.py, tests/test_torch_data_parallel.py and
+tests/test_torch_hybrid.py).
 
     outs = spawn("sharded_model", world=4, args={...}, tmp=tmp_path)
 
@@ -306,12 +307,15 @@ def mincut_contractions(rank: int, world: int, s, x, senders, receivers,
 
 
 def use_init(state: dict, setattr=setattr) -> None:
-    """The port's edge-partitioned fits start from ``state`` (a
-    state_dict of numpy arrays: JAX's init, converted; for the HSCN
-    pipeline {"scn": ..., "hscn": ...}): ``setattr`` replaces
-    ``sharded_gcn.build_sharded_model``, or ``sharded_scn.ShardedSCN`` and
-    ``.ShardedHSCN`` (pass pytest's ``monkeypatch.setattr`` to have them
+    """The port's fits start from ``state`` (a state_dict of numpy
+    arrays: JAX's init, converted; for the HSCN pipeline {"scn": ...,
+    "hscn": ...}; for the MPNN {"mpnn": ...}): ``setattr`` replaces
+    ``sharded_gcn.build_sharded_model`` (and the hybrid's reference to
+    it), ``sharded_scn.ShardedSCN`` and ``.ShardedHSCN``, or the runner's
+    ``build_mpnn`` (pass pytest's ``monkeypatch.setattr`` to have them
     restored)."""
+    from graph_hscn_tpu_torch import runner
+    from graph_hscn_tpu_torch.parallel import hybrid as phy
     from graph_hscn_tpu_torch.parallel import sharded_gcn as psg
     from graph_hscn_tpu_torch.parallel import sharded_scn as pss
 
@@ -326,9 +330,13 @@ def use_init(state: dict, setattr=setattr) -> None:
     if set(state) == {"scn", "hscn"}:
         setattr(pss, "ShardedSCN", loading(pss.ShardedSCN, state["scn"]))
         setattr(pss, "ShardedHSCN", loading(pss.ShardedHSCN, state["hscn"]))
+    elif set(state) == {"mpnn"}:
+        setattr(runner, "build_mpnn", loading(runner.build_mpnn,
+                                              state["mpnn"]))
     else:
-        setattr(psg, "build_sharded_model",
-                loading(psg.build_sharded_model, state))
+        build = loading(psg.build_sharded_model, state)
+        setattr(psg, "build_sharded_model", build)
+        setattr(phy, "build_sharded_model", build)
 
 
 def run_cli(rank: int, world: int, raw: dict, predict: str,
@@ -347,6 +355,155 @@ def run_cli(rank: int, world: int, raw: dict, predict: str,
     return {"history": result.history, "best": result.best_val_loss,
             "eval": evals, "partition": result.partition,
             "steps": result.num_train_steps}
+
+
+def _no_step():
+    """An optimizer that leaves the weights and their gradients as they
+    are (the gradients are read after the step)."""
+    import types
+    return types.SimpleNamespace(step=lambda *a: None, minibatches=0)
+
+
+def build_model(kind: str, kwargs: dict, state: dict):
+    """The port's ``MPNN`` or ``GatedGCNNet`` (``kwargs``) from ``state``."""
+    from graph_hscn_tpu_torch.models.gatedgcn import GatedGCNNet
+    from graph_hscn_tpu_torch.models.mpnn import MPNN
+    model = {"mpnn": MPNN, "gatedgcn": GatedGCNNet}[kind](**kwargs)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def dp_cases(rank: int, world: int, cases: dict, steps: int = 3,
+             lr: float = 0.01, weight_decay: float = 5e-4) -> dict:
+    """Each case ({name: {"kind", "kwargs", "state", "graphs", "budget",
+    "slot", "plan", "loss_fn", "node_level", "eval"}}) on this rank: its
+    sub-batch of ``parallel/data_parallel.py:pack_for_devices``, the DP
+    train step's loss and summed gradients, ``steps`` AdamW DP steps
+    (their losses and the final weights), with "eval" the DP eval step's
+    loss; on rank 0 also the single-device step (train/loop.py) on the
+    concatenated batch.  "plan": the CSR plan and the kernels' route
+    (their plain versions here)."""
+    from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch
+    from graph_hscn_tpu_torch.ops import spmm
+    from graph_hscn_tpu_torch.parallel import data_parallel as dp
+    from graph_hscn_tpu_torch.train.loop import make_train_step
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    mesh = _mesh(rank, world)
+    previous = spmm.get_backend()
+    out = {}
+    try:
+        for name, c in cases.items():
+            spmm.set_backend("pallas" if c["plan"] else "xla")
+            sub = dp.pack_for_devices(c["graphs"], world, c["budget"],
+                                      c["slot"], c["plan"],
+                                      ranks=[rank])[0].to("cpu")
+            model = build_model(c["kind"], c["kwargs"], c["state"])
+            params = dict(model.named_parameters())
+            step = dp.make_dp_train_step(model, _no_step(), c["loss_fn"],
+                                         mesh, c["node_level"])
+            loss, _, _, mask = step(sub, 0)
+            res = {"loss": float(loss), "rows": int(mask.sum()),
+                   "grads": {k: p.grad.numpy().copy()
+                             for k, p in params.items()}}
+            if c.get("eval"):
+                res["eval_loss"] = float(dp.make_dp_eval_step(
+                    model, c["loss_fn"], mesh, c["node_level"])(sub)[0])
+            opt = build_optimizer(model.parameters(), "adamW", lr,
+                                  weight_decay)
+            step = dp.make_dp_train_step(model, opt, c["loss_fn"], mesh,
+                                         c["node_level"])
+            res["step_losses"] = [float(step(sub, i)[0])
+                                  for i in range(steps)]
+            res["final"] = {k: v.detach().numpy().copy()
+                            for k, v in model.state_dict().items()}
+            if rank == 0:
+                b = c["budget"]
+                one = pack_batch(c["graphs"], PadBudget(
+                    b.num_nodes * world, b.num_edges * world,
+                    b.num_graphs * world), with_spmm_plan=c["plan"],
+                    slot_nodes=c["slot"]).to("cpu")
+                single = build_model(c["kind"], c["kwargs"], c["state"])
+                train_step, _ = make_train_step(
+                    single, _ZeroGrad(single), c["loss_fn"], c["node_level"])
+                res["single_loss"] = float(train_step(one)[0])
+                res["single_grads"] = {
+                    k: (torch.zeros_like(p) if p.grad is None
+                        else p.grad).numpy().copy()
+                    for k, p in single.named_parameters()}
+            out[name] = res
+    finally:
+        spmm.set_backend(previous)
+    return out
+
+
+def hybrid_cases(rank: int, world: int, shape, graphs, cases: dict,
+                 steps: int = 3, lr: float = 0.01, weight_decay: float = 5e-4,
+                 cli: dict | None = None) -> dict:
+    """Each case ({name: {"conv", "dims", "heads", "state", "hidden"}}) on
+    this rank of a 2-D mesh of ``shape``: the port's
+    ``build_hybrid_split`` of ``graphs`` and this rank's block
+    (``hybrid_block``), the sharded model from ``state``: its logits of
+    every rank (the kernels' route, their plain versions here, and the
+    plain one), the loss and gradients summed over every rank, ``steps``
+    AdamW steps; then with ``cli`` (:func:`run_cli`'s arguments) the CLI
+    run."""
+    from graph_hscn_tpu_torch.ops import spmm
+    from graph_hscn_tpu_torch.parallel.hybrid import (build_hybrid_split,
+                                                      hybrid_block)
+    from graph_hscn_tpu_torch.parallel.mesh import make_mesh
+    from graph_hscn_tpu_torch.parallel.sharded_gcn import (
+        gather_logits, loss_and_grads)
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+
+    mesh = make_mesh(("data", "model"), tuple(shape), "cpu")
+    assert mesh.coords == (rank // shape[1], rank % shape[1])
+    split = build_hybrid_split(graphs, *shape)
+    out = {}
+    previous = spmm.get_backend()
+    spmm.set_backend("pallas")
+    try:
+        for name, c in cases.items():
+            gps = c["conv"] == "gps"
+            planned = hybrid_block(*split[:4], mesh, use_plan=not gps,
+                                   graph_ids=gps)
+            plain = hybrid_block(*split[:4], mesh, graph_ids=gps)
+            model = build(c["conv"], c["dims"], c["heads"], c["state"],
+                          hidden=c.get("hidden"))
+            res = {"logits_plan": gather_logits(model, planned).numpy(),
+                   "logits_plain": gather_logits(model, plain).numpy()}
+            model.train()
+            res["loss"] = float(loss_and_grads(model, planned))
+            res["grads"] = _grads(model)
+            opt = build_optimizer(model.parameters(), "adamW", lr,
+                                  weight_decay)
+            res.update(_steps(model, opt,
+                              lambda: loss_and_grads(model, planned), steps))
+            out[name] = res
+    finally:
+        spmm.set_backend(previous)
+    if cli is not None:
+        out["cli"] = run_cli(rank, world, **cli)
+    return out
+
+
+def dryrun(rank: int, world: int) -> dict:
+    """``parallel/dryrun.py:dryrun_multichip`` on this rank (CPU)."""
+    from graph_hscn_tpu_torch.parallel.dryrun import dryrun_multichip
+    return dryrun_multichip("cpu")
+
+
+class _ZeroGrad:
+    """The train loop's optimizer interface, stepping nothing."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def zero_grad(self):
+        self.model.zero_grad(set_to_none=True)
+
+    def step(self, applies=None):
+        pass
 
 
 if __name__ == "__main__":
