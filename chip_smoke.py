@@ -215,6 +215,22 @@ Phases; any failure exits non-zero:
                chunk over the budget split in halves); run_experiment 2
                epochs (csr_spmm counted), its median step ms beside the
                num_workers 0 run's; an epoch of each profiled (idle share).
+     support - utils/profiling.py and the walkthrough: (a) the fused
+               peptides config through run_experiment for 2 epochs with
+               runtime.profile_dir, beside an untraced run: the Chrome
+               trace's MB (an epoch), the fit's wall time with and
+               without it, and fused_gcn_fwd / fused_gcn_bwd kernel events
+               in the trace equal to the wrappers' replay accounting (the
+               trace sees the kernels inside the replayed graphs); (b)
+               runtime.debug_nans on the fused config (captured: one check
+               an epoch) and the sparse VOC GCN (host loop, csr_spmm: one
+               a step), each run off, on, off, on: the median step ms of
+               each run, the losses bit for bit the same (the fused route's
+               in a pair under torch's deterministic algorithms), NaN in
+               every graph's features raising
+               FloatingPointError; (c) StepTimer around an epoch of the
+               sparse VOC GCN's train steps (edges/s); (d) the HSCN
+               walkthrough (graph_hscn_tpu_torch/examples) on the card.
 A [time] line gives the script's wall time.  The last three lines are the
 {"kernels": [...]} record, nvidia-smi's line, and {"ok": true, "device":
 {...}}.
@@ -3830,6 +3846,221 @@ def phase_loader(workers0_median: float) -> dict:
 
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms within the block (the readout's
+    ``index_add_`` sums in a fixed order; uninitialised memory left as
+    it is)."""
+    import torch
+    import torch.utils.deterministic as det
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        det.fill_uninitialized_memory = saved[1]
+
+
+def run_losses(result) -> list:
+    return [(h["train_loss"], h["validation_loss"], h["test_loss"])
+            for h in result.history]
+
+
+def support_trace() -> dict:
+    """[support] (a): the fused peptides config through run_experiment
+    for EPOCHS epochs with ``runtime.profile_dir``: the trace file, its
+    MB, the fit's wall time beside an untraced run's, and the fused
+    kernels' launches in the trace against the wrappers' replay
+    accounting.  Returns the traced run's launches."""
+    import torch
+
+    trace_dir = SCRATCH / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    walls, runs = {}, {}
+    for label, changes in (("untraced", None),
+                           ("traced", {"runtime.profile_dir":
+                                       str(trace_dir)})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = train_run(PEPTIDES_FUSED, fused_launches,
+                                f"support {label}", changes)
+        walls[label] = time.perf_counter() - t0
+    launches = runs["traced"][0]
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"[support] {len(files)} trace files in {trace_dir}, want 1")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    seen = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                   and FUSED_KERNEL_NAMES[k] in e.get("name", ""))
+            for k in ("fused_gcn_fwd", "fused_gcn_bwd")}
+    counted = {k: launches[k] for k in seen}
+    mb = files[0].stat().st_size / 2**20
+    epochs = runs["traced"][1].epochs_run
+    print(f"[support] trace: {files[0].name}, {mb:.2f} MB for {epochs} "
+          f"epochs ({mb / epochs:.2f} MB an epoch), {len(events)} events; "
+          f"fit wall {walls['traced']:.3f} s traced, "
+          f"{walls['untraced']:.3f} s untraced (EPOCHS={EPOCHS}, each "
+          "with its first eager rows and captures); fused kernels in the "
+          f"trace {seen}, the wrappers' replay accounting {counted}; "
+          f"replays {runs['traced'][1].replays}", flush=True)
+    if seen != counted:
+        fail(f"[support] the trace holds {seen} fused kernel launches, "
+             f"the replay accounting {counted}")
+    return launches
+
+
+def support_nans() -> dict:
+    """[support] (b): ``runtime.debug_nans`` on the fused config (the
+    captured route: a check an epoch, outside the graphs) and the sparse
+    VOC GCN (the host loop, csr_spmm: a check a step), each run off, on,
+    off, on.  Each clean run's losses equal the first flag-off run's bit
+    for bit (the fused route's under torch's deterministic algorithms, in
+    a pair of runs of their own: its readout's ``index_add_`` sums in a
+    run-dependent order otherwise); the runs' median step ms; NaN in every
+    graph raises FloatingPointError.  Returns the runs' launches."""
+    from collections import Counter
+
+    from graph_hscn_tpu_torch.data import pipeline
+    from graph_hscn_tpu_torch.runner import run_experiment
+    from graph_hscn_tpu_torch.utils.profiling import nan_guard
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_dist import poisoned           # the tests' NaN in x[0, 0]
+
+    total: Counter = Counter()
+    on = {"runtime.debug_nans": True}
+    try:
+        for path, expected, label in (
+                (PEPTIDES_FUSED, fused_launches, "fused peptides GCN, "
+                 "captured"),
+                (CONFIG, voc_gcn_launches, "VOC sparse GCN, host loop")):
+            runs = {"off": [], "on": []}
+            for flag, changes in (("off", None), ("on", on)) * 2:
+                nan_guard(False)
+                out = train_run(path, expected, f"support nans {flag}",
+                                changes)
+                total.update(out[0])
+                runs[flag].append(out)
+            first = run_losses(runs["off"][0][1])
+            same = all(run_losses(r[1]) == first
+                       for r in runs["off"][1:] + runs["on"])
+            if path == PEPTIDES_FUSED:
+                with deterministic():
+                    pair = []
+                    for changes in (None, on):
+                        nan_guard(False)
+                        out = train_run(path, expected,
+                                        "support nans deterministic",
+                                        changes)
+                        total.update(out[0])
+                        pair.append(run_losses(out[1]))
+                bitwise = pair[0] == pair[1]
+                note = (f"; under deterministic algorithms the same bit "
+                        f"for bit: {bitwise} (as run, all four: {same})")
+            else:
+                bitwise = same
+                note = f"; all four the same bit for bit: {bitwise}"
+            ms = {flag: [r[2] for r in rs] for flag, rs in runs.items()}
+            print(f"[support] debug_nans, {label}: median step ms "
+                  "(synchronised host clock), runs in the order off, on, "
+                  f"off, on: off {ms['off'][0]:.3f} / {ms['off'][1]:.3f}, "
+                  f"on {ms['on'][0]:.3f} / {ms['on'][1]:.3f}{note}",
+                  flush=True)
+            if not bitwise:
+                fail(f"[support] {label}: losses with debug_nans differ "
+                     "from the run without it")
+            nan_guard(False)
+            cfg = load_with(path, on)
+            cfg.training.epochs = EPOCHS
+            try:
+                with poisoned(pipeline, "all"):
+                    run_experiment(cfg)
+            except FloatingPointError as e:
+                print(f"[support] debug_nans, {label}, NaN in every graph: "
+                      f"FloatingPointError: {e}", flush=True)
+            else:
+                fail(f"[support] {label}: NaN in every graph raised nothing")
+    finally:
+        nan_guard(False)
+    return dict(total)
+
+
+def support_step_timer() -> None:
+    """[support] (c): StepTimer around an epoch of the sparse VOC GCN's
+    train steps (with the CSR plan, csr_spmm): edges/s, nodes/s, steps/s
+    over the epoch, the card synchronised at the report."""
+    import torch
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.models.mpnn import build_mpnn
+    from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.loop import make_train_step
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    from graph_hscn_tpu_torch.utils.profiling import StepTimer
+
+    cfg = load_with(CONFIG)
+    set_matmul_precision(cfg.runtime.matmul_precision)
+    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
+    dm.with_spmm_plan = True
+    batches = list(dm.train_batches(epoch_seed=dm.seed))
+    model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
+                       compat=cfg.compat.double_relu, readout="none",
+                       generator=torch.Generator().manual_seed(0)).cuda()
+    opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
+                          cfg.optim.lr, cfg.optim.weight_decay)
+    step, _ = make_train_step(model, opt, cfg.training.loss_fn,
+                              node_level=True,
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(0))
+    step(batches[0].to("cuda"))               # warm-up
+    timer = StepTimer()
+    for b in batches:
+        step(b.to("cuda"))
+        timer.update(int(b.edge_mask.sum()), int(b.node_mask.sum()))
+    r = timer.report()
+    print(f"[support] StepTimer, VOC sparse GCN, an epoch of {timer.steps} "
+          f"train steps (batch to the card and step): "
+          f"{r['edges_per_sec'] / 1e6:.3f} M edges/s, "
+          f"{r['nodes_per_sec'] / 1e6:.3f} M nodes/s, "
+          f"{r['steps_per_sec']:.1f} steps/s, {r['wall_sec']:.3f} s",
+          flush=True)
+
+
+def support_walkthrough() -> dict:
+    """[support] (d): the HSCN walkthrough on the card, every stage.
+    Returns its launches."""
+    from graph_hscn_tpu_torch.examples import hscn_walkthrough
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = hscn_walkthrough.main(["--device", "cuda"])
+    for stage in ("fit", "giant", "feedback"):
+        losses = [h["train_loss"] for h in out[stage].history]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            fail(f"[support] walkthrough {stage}: losses {losses}")
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"[support] walkthrough on the card: {len(out['clusters'])} "
+          f"graphs clustered, virtual nodes {out['virtual_nodes']}, "
+          f"every stage's losses finite, {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def phase_support() -> dict:
+    """[support]: utils/profiling.py and the walkthrough on the card
+    (``support_trace``, ``support_nans``, ``support_step_timer``,
+    ``support_walkthrough``).  Returns the phase's launches."""
+    from collections import Counter
+    launches = Counter(support_trace())
+    launches.update(support_nans())
+    support_step_timer()
+    launches.update(support_walkthrough())
+    return dict(launches)
+
+
 def main() -> int:
     if not (REPO / "graph_hscn_tpu_torch" / "csrc").is_dir():
         fail(f"{REPO} holds no graph_hscn_tpu_torch package: run the script "
@@ -3938,7 +4169,11 @@ def main() -> int:
     loader = phase_loader(voc_median)
     print(f"[time] [loader]: {time.perf_counter() - t0:.1f} s wall",
           flush=True)
-    for counts in (voc, fused_fit, *evals, ep, dp, hybrid, loader):
+    t0 = time.perf_counter()
+    support = phase_support()
+    print(f"[time] [support]: {time.perf_counter() - t0:.1f} s wall",
+          flush=True)
+    for counts in (voc, fused_fit, *evals, ep, dp, hybrid, loader, support):
         for kernel, n in counts.items():
             launches[kernel] += n
     for k in kernels:

@@ -12,6 +12,10 @@ Two routes, as the JAX runner picks them: the host loop ``fit`` over
 batches packed on the host (sparse with a CSR plan, or slotted), or the
 device-resident dataset, shared by clustering and the HSCN fit.
 
+As in JAX, the device-resident route's HSCN fit logs the train split's
+edges a second and runs inside ``runtime.profile_dir``'s trace; the host
+route's does neither.
+
 With a ``Checkpointer`` the HSCN fit saves and resumes as any fit does;
 its snapshots hold the HSCN's weights only.  The clusters are not in
 them: a resumed run clusters again first, which is deterministic given
@@ -59,7 +63,8 @@ def run_hscn_pipeline(cfg: ExperimentConfig, dm: DataModule, logger,
     if use_device_dataset:
         return run_hscn_pipeline_device(cfg, dm, logger, device,
                                         compute_dtype, step_timing,
-                                        checkpointer)
+                                        checkpointer,
+                                        profile_dir=cfg.runtime.profile_dir)
     model, cluster_losses = cluster_on_host(cfg, dm, logger, device,
                                             compute_dtype)
     result = fit(
@@ -93,7 +98,8 @@ def cluster_on_host(cfg: ExperimentConfig, dm: DataModule, logger,
 def run_hscn_pipeline_device(cfg: ExperimentConfig, dm: DataModule, logger,
                              device: torch.device, compute_dtype=None,
                              step_timing: bool = False,
-                             checkpointer=None) -> FitResult:
+                             checkpointer=None,
+                             profile_dir: str | None = None) -> FitResult:
     """The device-resident route: one dataset on ``device`` (train, val,
     test in that order) for the clustering pre-train, the assignments
     written back into it, and the HSCN fit.  On the card each stage
@@ -116,7 +122,9 @@ def run_hscn_pipeline_device(cfg: ExperimentConfig, dm: DataModule, logger,
         model, ds, split_ids, dm.batch_size, cfg.optim, cfg.training,
         logger, device, node_level=dm.task_level == "node",
         compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-        step_timing=step_timing, checkpointer=checkpointer)
+        step_timing=step_timing, checkpointer=checkpointer,
+        profile_dir=profile_dir,
+        train_edges=sum(g.num_edges for g in splits["train"]))
     result.cluster_losses = cluster_losses
     return result
 

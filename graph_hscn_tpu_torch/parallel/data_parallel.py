@@ -47,6 +47,7 @@ from graph_hscn_tpu_torch.train.loop import (FitResult, _maybe_resume,
 from graph_hscn_tpu_torch.train.loss import criterion
 from graph_hscn_tpu_torch.train.metrics import METRICS
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+from graph_hscn_tpu_torch.utils.profiling import check_nans, training_state
 
 
 def assign_devices(graphs: list[GraphData], num_devices: int,
@@ -260,21 +261,32 @@ def fit_dp(model: torch.nn.Module, dm, mesh: Mesh, optim_cfg, training_cfg,
         m = m.reshape(-1)
         return loss, metric_fn(y_true[m], y_pred[m])
 
+    def check(out, where, state=()):
+        """``runtime.debug_nans``: a step's loss, this rank's scores and
+        targets (and ``state``), the flags all-reduced over the mesh."""
+        check_nans(where, [("loss", out[0]), ("scores", out[1]),
+                           ("targets", out[2])], state, group=mesh.group)
+
     def train_epoch(epoch):
         outs = []
         for batch in batches("train", True, training_cfg.seed + epoch):
             t0 = time.perf_counter()
             outs.append(train_step(batch, opt.minibatches))
+            check(outs[-1], "train step", training_state(model, opt))
             counts["train"] += 1
             if step_timing:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 step_seconds.append(time.perf_counter() - t0)
-        return collect(outs)
+        # No edge count: JAX's fit_dp logs none (data_parallel.py:288).
+        return (*collect(outs), None)
 
     def evaluate(split):
         counts["eval"] += len(eval_batches[split])
-        return collect([eval_step(b) for b in eval_batches[split]])
+        outs = [eval_step(b) for b in eval_batches[split]]
+        for out in outs:
+            check(out, "eval step")
+        return collect(outs)
 
     # Every rank restored above; rank 0 alone writes.
     best, history, stopped, epochs_run = run_fit_loop(

@@ -224,5 +224,8 @@ def fit_hybrid(dm, mesh: Mesh, mpnn_cfg, optim_cfg, training_cfg, logger,
         conv, dims, heads=mpnn_cfg.num_heads if conv == "gps" else 1,
         generator=torch.Generator().manual_seed(training_cfg.seed),
         hidden=mpnn_cfg.hidden_channels).to(mesh.device)
+    # The epoch line's edges: the train graphs' (JAX's hybrid.py:295).
     return fit_blocks(model, splits, mesh, optim_cfg, training_cfg, logger,
-                      checkpointer, eval_only, predictions_sink, step_timing)
+                      checkpointer, eval_only, predictions_sink, step_timing,
+                      train_edges=sum(g.num_edges
+                                      for g in dm.split("train")))

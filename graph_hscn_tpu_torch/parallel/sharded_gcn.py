@@ -68,6 +68,7 @@ from graph_hscn_tpu_torch.train.loop import (FitResult, _maybe_resume,
                                              snapshot_state)
 from graph_hscn_tpu_torch.train.metrics import METRICS
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+from graph_hscn_tpu_torch.utils.profiling import check_nans, training_state
 
 # Below this many columns (H*C for GAT) the local aggregation stays a
 # plain gather and index_add_, as JAX's width gate (sharded_gcn.py:91-93).
@@ -622,7 +623,7 @@ def fit_blocks(model: nn.Module, splits: dict, mesh: Mesh, optim_cfg,
                eval_only: str | None = None,
                predictions_sink: dict | None = None,
                step_timing: bool = False, dropout: float = 0.0,
-               args: dict | None = None):
+               args: dict | None = None, train_edges: int | None = None):
     """The fit of a sharded model on packed ``splits`` ({name:
     :class:`Split`}), shared by ``fit_edge_partitioned`` and the HSCN
     pipeline's: one full-batch step an epoch with ``run_fit_loop``'s eval
@@ -630,7 +631,14 @@ def fit_blocks(model: nn.Module, splits: dict, mesh: Mesh, optim_cfg,
     writes), or with ``eval_only`` the restored snapshot's ({split:
     {"loss", metric}}, meta).  ``args``: {split: the model's arguments
     after the block} (an HSCN's cluster ids); without them a train step
-    passes the epoch's dropout generator (``dropout`` > 0) or None."""
+    passes the epoch's dropout generator (``dropout`` > 0) or None.
+    ``train_edges``: the epoch line's edge count (default: the packed
+    train split's real edges, JAX's ``edge_mask`` sum).
+
+    With ``runtime.debug_nans`` every train step's loss, the weights and
+    the optimizer state, and every forward's gathered logits, are checked
+    for NaN, the flags all-reduced over the mesh so that every rank
+    raises together (JAX's ``shard_map`` program fails as one)."""
     metric_fn = METRICS[training_cfg.metric]
     counts = {"train": 0, "eval": 0}
 
@@ -639,7 +647,9 @@ def fit_blocks(model: nn.Module, splits: dict, mesh: Mesh, optim_cfg,
         s = splits[split]
         counts["eval"] += 1
         logits = gather_logits(model, s.block,
-                               *(args or {}).get(split, ())).cpu()
+                               *(args or {}).get(split, ()))
+        check_nans("forward", [("logits", logits)], group=mesh.group)
+        logits = logits.cpu()
         return logits[torch.from_numpy(s.node_mask)], s.node_y[s.node_mask]
 
     def evaluate(split):
@@ -677,6 +687,8 @@ def fit_blocks(model: nn.Module, splits: dict, mesh: Mesh, optim_cfg,
     start_epoch, best_loss = _maybe_resume(model, opt, gen, checkpointer,
                                            mesh.device, logger)
     blk = splits["train"].block
+    if train_edges is None:
+        train_edges = splits["train"].info["edges"]
     step_seconds = []
 
     def train_epoch(epoch):
@@ -690,6 +702,8 @@ def fit_blocks(model: nn.Module, splits: dict, mesh: Mesh, optim_cfg,
                          if dropout > 0.0 else None,)
         loss = loss_and_grads(model, blk, *step_args)
         opt.step()
+        check_nans("train step", [("loss", loss)],
+                   training_state(model, opt), group=mesh.group)
         counts["train"] += 1
         if step_timing:
             if mesh.device.type == "cuda":
@@ -699,7 +713,7 @@ def fit_blocks(model: nn.Module, splits: dict, mesh: Mesh, optim_cfg,
         perf = (evaluate("train")[1]
                 if is_eval_epoch(epoch, training_cfg.epochs,
                                  training_cfg.eval_period) else float("nan"))
-        return float(loss), perf
+        return float(loss), perf, train_edges
 
     # Every rank restored above; rank 0 alone writes.
     best, history, stopped, epochs_run = run_fit_loop(

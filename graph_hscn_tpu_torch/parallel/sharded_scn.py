@@ -49,6 +49,7 @@ from graph_hscn_tpu_torch.parallel.sharded_gcn import (
     partition_split)
 from graph_hscn_tpu_torch.parallel.sharded_hscn import ShardedHSCN
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+from graph_hscn_tpu_torch.utils.profiling import check_nans, training_state
 
 
 class SumPartials(torch.autograd.Function):
@@ -219,9 +220,12 @@ def fit_hscn_edge_partitioned(dm, mesh: Mesh, hscn_cfg, optim_cfg,
         for name in ("train", "val", "test"):
             losses.append(scn_loss_and_grads(scn, splits[name].block))
             scn_opt.step()
+            check_nans("clustering step", [("loss", losses[-1])],
+                       training_state(scn, scn_opt), group=mesh.group)
         cluster_losses.append(float(torch.stack(losses).mean()))
         logger.info(f"Clustering epoch {ep}: loss={cluster_losses[-1]:.4f} "
                     f"({time.time() - t0:.2f}s)")
+        logger.wandb_log({"cluster_loss": cluster_losses[-1]})
 
     # ---- Stage 2: each split's assignment. ----
     clusters = {name: scn.assign(s.block) for name, s in splits.items()}

@@ -27,9 +27,12 @@ first, or the trainable SignNet wraps the model; with
 is the eval-only mode of ``main.py --eval``.
 
 Execution paths are routed as in the JAX package (runner.py:49-61, :63-67,
-:71-118, :120-238, :322-360); the keys of later slices raise
-``NotImplementedError`` naming their ROADMAP item, so no config trains as
-if it had not set them.
+:71-118, :120-238, :322-360).  ``runtime.debug_nans`` turns the NaN check
+of every route on (utils/profiling.py:nan_guard) before any data moves;
+``runtime.profile_dir`` traces the device-resident fits, the only ones
+JAX traces, and elsewhere logs a warning naming the route, so that no
+config trains as if it had not set a key; ``training.use_wandb`` logs to
+wandb from rank 0.
 
 Runs on ``cuda`` unless the caller passes another device; without a card
 that raises.
@@ -67,6 +70,7 @@ from graph_hscn_tpu_torch.train.loop import (FitResult, evaluate_checkpoint,
                                              fit, fit_device)
 from graph_hscn_tpu_torch.transform.posenc import attach_posenc
 from graph_hscn_tpu_torch.utils.logger import Logger
+from graph_hscn_tpu_torch.utils.profiling import nan_guard
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -85,20 +89,6 @@ def set_matmul_precision(precision: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     torch.set_float32_matmul_precision("highest" if not tf32 else "high")
-
-
-def _refuse_later_slices(cfg: ExperimentConfig) -> None:
-    """The runtime keys whose paths are not ported raise, naming their
-    ROADMAP item, so that no config trains as if it had not set them."""
-    rt = cfg.runtime
-    if rt.debug_nans:
-        raise NotImplementedError(
-            "runtime.debug_nans (utils/profiling.py): ROADMAP queue A, "
-            "item 12")
-    if rt.profile_dir:
-        raise NotImplementedError(
-            "runtime.profile_dir (utils/profiling.py:trace): ROADMAP queue "
-            "A, item 12")
 
 
 def _setup_run(cfg: ExperimentConfig, device) -> tuple:
@@ -124,12 +114,16 @@ def run_experiment(cfg: ExperimentConfig, device=None, log_file=None,
     ``data_parallel`` (no config key) takes ``fit_dp`` even on one rank:
     the yardstick that ``chip_smoke.py`` holds against the single-device
     fit and ``parallel/compare_ranks.py`` against D ranks."""
-    _refuse_later_slices(cfg)
     # "on" without a launcher's variables raises here, before any work.
     launcher_env(cfg.runtime.multihost)
     device, compute_dtype = _setup_run(cfg, device)
+    if cfg.runtime.debug_nans:
+        # Process-wide and never turned off, as JAX's (runner.py:34-36).
+        nan_guard(True)
     logger = Logger(log_file=log_file, metric_name=cfg.training.metric,
                     use_wandb=cfg.training.use_wandb,
+                    wandb_project=(cfg.training.wandb_proj_name
+                                   or cfg.project_name),
                     quiet=this_rank(cfg.runtime.multihost) != 0)
     try:
         return _run(cfg, device, compute_dtype, logger, step_timing,
@@ -319,6 +313,17 @@ def _data_parallel(cfg: ExperimentConfig, dm, model, device, logger,
                   checkpointer=_checkpointer(cfg), step_timing=step_timing)
 
 
+def _untraced(cfg: ExperimentConfig, logger, route: str) -> None:
+    """``runtime.profile_dir`` on a route JAX does not trace (it reads the
+    key in ``fit_device`` and the device-resident HSCN pipeline alone):
+    one warning, and the run goes on as without the key."""
+    if cfg.runtime.profile_dir:
+        logger.logger.warning(
+            f"runtime.profile_dir is not traced on the {route} route (the "
+            "JAX package traces the device-resident fits alone); training "
+            "without a trace.")
+
+
 def _run(cfg, device, compute_dtype, logger, step_timing,
          data_parallel: bool = False) -> FitResult:
     group = (process_group(device, cfg.runtime.multihost) if data_parallel
@@ -332,16 +337,22 @@ def _run(cfg, device, compute_dtype, logger, step_timing,
                                  "without mesh.edge_partition")
             route = "dp"
         if route in ("edge", "hybrid"):
+            _untraced(cfg, logger, {"edge": "edge-partitioned",
+                                    "hybrid": "hybrid"}[route])
             return _edge_partitioned(cfg, dm, route, shape, device,
                                      compute_dtype, logger,
                                      step_timing=step_timing)
         if cfg.hscn is not None:
+            on_device = _use_device_dataset(cfg, dm)
+            if not on_device:
+                _untraced(cfg, logger, "host-loop HSCN")
             return run_hscn_pipeline(
                 cfg, dm, logger, device, compute_dtype,
-                use_device_dataset=_use_device_dataset(cfg, dm),
+                use_device_dataset=on_device,
                 step_timing=step_timing, checkpointer=_checkpointer(cfg))
         model = _model(cfg, dm, device, compute_dtype, logger)
         if route == "dp":
+            _untraced(cfg, logger, "data-parallel")
             return _data_parallel(cfg, dm, model, device, logger, shape,
                                   step_timing)
         if _use_device_dataset(cfg, dm):
@@ -353,7 +364,9 @@ def _run(cfg, device, compute_dtype, logger, step_timing,
                 node_level=dm.task_level == "node",
                 compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
                 slot=dm.slot_nodes, step_timing=step_timing,
-                checkpointer=_checkpointer(cfg))
+                checkpointer=_checkpointer(cfg),
+                profile_dir=cfg.runtime.profile_dir)
+        _untraced(cfg, logger, "host-loop")
         return fit(
             model,
             # Fresh batch composition every epoch (reference DataLoader

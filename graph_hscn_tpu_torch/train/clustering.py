@@ -15,6 +15,12 @@ package runs each epoch and the assignment pass as one ``lax.scan``, it
 runs the MinCUT step and the assignment step row by row through
 ``device_data.RowSteps``: on the card each is captured once as a CUDA graph
 and replayed, on the CPU it runs eagerly.
+
+Each epoch's mean loss goes to wandb as ``cluster_loss`` (the reference's
+train_clustering.py:52-53).  With ``runtime.debug_nans`` the host route
+checks each step's loss and the SCN's weights and optimizer state, the
+device route each epoch's (JAX's jitted ``step`` and scanned epoch); the
+assignments are integers, unchecked, as JAX's.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from graph_hscn_tpu_torch.train.device_data import (DeviceDataset, RowSteps,
                                                     resolve_capture,
                                                     row_buffers)
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+from graph_hscn_tpu_torch.utils.profiling import check_nans, training_state
 
 
 def train_clustering(logger, dm, scn, hscn_cfg, optim_cfg, seed: int = 0,
@@ -55,9 +62,12 @@ def train_clustering(logger, dm, scn, hscn_cfg, optim_cfg, seed: int = 0,
             loss.backward()
             opt.step()
             losses.append(loss.detach())
+            check_nans("clustering step", [("loss", loss)],
+                       training_state(scn, opt))
         means.append(float(torch.stack(losses).mean()))
         logger.info(f"Clustering epoch {epoch}: loss={means[-1]:.4f} "
                     f"({time.time() - t0:.2f}s)")
+        logger.wandb_log({"cluster_loss": means[-1]})
     scn.eval()
     logger.info("Generating cluster assignments...")
     clusters: list[np.ndarray] = []
@@ -118,9 +128,12 @@ def train_clustering_device(logger, ds: DeviceDataset, batch_size: int, scn,
         t0 = time.time()
         (losses,) = train_epoch(epoch_permutation(NG, batch_size,
                                                   seed + epoch))
+        check_nans("clustering epoch", [("loss", losses)],
+                   training_state(scn, opt))
         means.append(float(losses.mean()))
         logger.info(f"Clustering epoch {epoch}: loss={means[-1]:.4f} "
                     f"({time.time() - t0:.2f}s)")
+        logger.wandb_log({"cluster_loss": means[-1]})
     scn.eval()
     (preds,) = infer_all(order)                       # [NB, B, slot]
     flat = preds.reshape(-1, ds.slot)

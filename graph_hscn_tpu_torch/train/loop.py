@@ -12,7 +12,13 @@ the host path ``fit`` and the device-resident path ``fit_device``.
   on val loss — all identical to reference train.py:164-214;
 - with a ``Checkpointer`` (train/checkpoint.py) a fit resumes from its
   latest snapshot and saves best and latest ones, as the JAX fit does;
-  :func:`evaluate_checkpoint` scores a snapshot without training.
+  :func:`evaluate_checkpoint` scores a snapshot without training;
+- with ``runtime.debug_nans`` (utils/profiling.py) the host loop checks
+  every step's outputs, and the weights and optimizer state a train step
+  leaves, for NaN; the device route checks an epoch's outputs and what it
+  leaves once the epoch has run, as JAX checks its one program an epoch;
+- the device route's epoch line carries the train split's edges a second,
+  as JAX's does; the host loop's does not, as JAX's does not.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
 from graph_hscn_tpu_torch.train.loss import criterion
 from graph_hscn_tpu_torch.train.metrics import METRICS
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+from graph_hscn_tpu_torch.utils.profiling import (check_nans, trace,
+                                                  training_state)
 
 
 def is_eval_epoch(epoch: int, max_epochs: int, eval_period: int) -> bool:
@@ -105,7 +113,9 @@ def run_fit_loop(training_cfg, logger, train_epoch, evaluate,
     train/utils.py:1-6), early stopping on val-loss plateau (reference
     train.py:198-214), best/latest checkpoints and the history record.
 
-    train_epoch(epoch) -> (train_loss, train_perf)
+    train_epoch(epoch) -> (train_loss, train_perf, num_edges | None),
+                          num_edges the edges the epoch's steps went over
+                          (the log line's edges/s), as JAX's loop.py:184
     evaluate(split)    -> (loss, perf) for split in ("val", "test")
     get_state()        -> the snapshot a ``checkpointer`` saves.
     Returns (best_val_loss, history, stopped_early, epochs_run).
@@ -137,8 +147,9 @@ def _fit_loop_body(training_cfg, logger, train_epoch, evaluate,
     epochs_run = start_epoch
     for epoch in range(start_epoch, training_cfg.epochs):
         t0 = time.time()
-        train_loss, train_perf = train_epoch(epoch)
-        logger.log_train(epoch, train_loss, train_perf, t0)
+        train_loss, train_perf, num_edges = train_epoch(epoch)
+        logger.log_train(epoch, train_loss, train_perf, t0,
+                         num_edges=num_edges)
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "train_perf": train_perf})
         epochs_run = epoch + 1
@@ -239,6 +250,7 @@ def fit(model: torch.nn.Module,
                                       step_timing, total_steps)
     start_epoch, best_loss = _maybe_resume(model, opt, dropout_gen,
                                            checkpointer, device, logger)
+    runner.watch(model, opt)
     train_step, eval_step = make_train_step(
         model, opt, training_cfg.loss_fn, node_level=node_level,
         compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen)
@@ -249,8 +261,9 @@ def fit(model: torch.nn.Module,
 
     best, history, stopped, epochs_run = run_fit_loop(
         training_cfg, logger,
-        lambda epoch: runner.run(train_batches_fn(epoch), move, train_step,
-                                 "train"),
+        # No edge count: JAX's host fit logs none (loop.py:434).
+        lambda epoch: (*runner.run(train_batches_fn(epoch), move,
+                                   train_step, "train"), None),
         lambda split: runner.run(eval_sets[split], move, eval_step, "eval"),
         checkpointer, lambda: snapshot_state(model, opt, dropout_gen),
         start_epoch, best_loss)
@@ -283,7 +296,10 @@ class _StepRunner:
     """Runs an epoch's steps, counts them, times the train steps when asked
     (each then ends in a device sync; the time covers making the step's
     batch on the device and the step), and turns the epoch's outputs into
-    (mean loss, metric) with one readback."""
+    (mean loss, metric) with one readback.  With ``runtime.debug_nans``
+    it checks each step's outputs (:meth:`run`) or each epoch's
+    (:meth:`run_rows`), and after a train step or epoch the weights and
+    optimizer state (:meth:`watch`)."""
 
     def __init__(self, metric_fn, device: torch.device, step_timing: bool):
         self.metric_fn = metric_fn
@@ -292,6 +308,19 @@ class _StepRunner:
         self.counts = {"train": 0, "eval": 0}
         self.step_seconds: list[float] = []
         self.replays = {"train": 0, "eval": 0}
+        self.state: Callable[[], Iterable] = tuple
+
+    def watch(self, model, opt) -> None:
+        """What a train step leaves, checked with its outputs."""
+        self.state = lambda: training_state(model, opt)
+
+    def check(self, outs, kind: str, where: str) -> None:
+        """``runtime.debug_nans``: the outputs (loss, scores, targets,
+        mask) of a step or an epoch, and after training what it leaves."""
+        check_nans(f"{kind} {where}", [("loss", outs[0]),
+                                         ("scores", outs[1]),
+                                         ("targets", outs[2])],
+                   self.state() if kind == "train" else ())
 
     def run(self, items: Iterable, prepare: Callable, step, kind: str):
         """``prepare(item)`` makes the step's batch on the device."""
@@ -299,6 +328,7 @@ class _StepRunner:
         for item in items:
             t0 = time.perf_counter()
             outs.append(step(prepare(item)))
+            self.check(outs[-1], kind, "step")
             self.counts[kind] += 1
             if self.step_timing and kind == "train":
                 if self.device.type == "cuda":
@@ -313,6 +343,7 @@ class _StepRunner:
         ``device_data.RowSteps``) over the rows of ``perm``."""
         timed = self.step_timing and kind == "train"
         outs = epoch_fn(perm, self.step_seconds if timed else None)
+        self.check(outs, kind, "epoch")
         self.counts[kind] += len(perm)
         self.replays[kind] = epoch_fn.replays
         return self.collect(*outs)
@@ -340,12 +371,14 @@ def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
                batch_size: int, optim_cfg, training_cfg, logger,
                device: torch.device | str, node_level: bool = False,
                compat_sigmoid_score: bool = False, slot: int | None = None,
-               step_timing: bool = False, checkpointer=None) -> FitResult:
+               step_timing: bool = False, checkpointer=None,
+               profile_dir: str | None = None) -> FitResult:
     """Device-resident training (the JAX ``fit_device``): the whole dataset
     lives on ``device``, batches are assembled there from index rows
     (train/device_data.py), and an epoch's host traffic is its [NB, B]
     permutation plus the metric readback.  Same eval cadence and early
-    stopping as :func:`fit`."""
+    stopping as :func:`fit`; the epoch line's edge count is the train
+    split's edges, as JAX's."""
     splits = {"train": list(graphs_train), "val": list(graphs_val),
               "test": list(graphs_test)}
     all_graphs = splits["train"] + splits["val"] + splits["test"]
@@ -360,7 +393,8 @@ def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
         model, ds, split_ids, batch_size, optim_cfg, training_cfg, logger,
         device, node_level=node_level,
         compat_sigmoid_score=compat_sigmoid_score, step_timing=step_timing,
-        checkpointer=checkpointer)
+        checkpointer=checkpointer, profile_dir=profile_dir,
+        train_edges=sum(g.num_edges for g in splits["train"]))
 
 
 def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
@@ -370,7 +404,8 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
                           compat_sigmoid_score: bool = False,
                           step_timing: bool = False,
                           capture: bool | None = None,
-                          checkpointer=None) -> FitResult:
+                          checkpointer=None, profile_dir: str | None = None,
+                          train_edges: int | None = None) -> FitResult:
     """:func:`fit_device` on a prebuilt DeviceDataset.
 
     Each epoch runs through :func:`device_data.make_epoch_fn`, as the JAX
@@ -383,7 +418,12 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     tests and ``chip_smoke.py`` hold the captured fit against (no config
     sets it).  A capture or replay that fails raises.  ``checkpointer``
     as in :func:`fit`; the restore comes before the first row, so before
-    the steps are captured.
+    the steps are captured.  ``train_edges``: the train split's edges, the
+    epoch line's edge count.
+
+    ``profile_dir`` (``runtime.profile_dir``): the epochs run inside
+    :func:`utils.profiling.trace`, as JAX's inside its trace: the first
+    row of each step eager, its capture and the replays all traced.
     """
     device = torch.device(device)
     capture = resolve_capture(capture, device)
@@ -396,6 +436,7 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
                                       capturable=device.type == "cuda")
     start_epoch, best_loss = _maybe_resume(model, opt, dropout_gen,
                                            checkpointer, device, logger)
+    runner.watch(model, opt)
 
     def split_perm(name, seed, shuffle) -> np.ndarray:
         p = epoch_permutation(counts[name], batch_size, seed, shuffle)
@@ -410,14 +451,17 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
         node_level=node_level, compat_sigmoid_score=compat_sigmoid_score,
         generator=dropout_gen, capture=capture)
 
-    best, history, stopped, epochs_run = run_fit_loop(
-        training_cfg, logger,
-        lambda epoch: runner.run_rows(
-            train_epoch, split_perm("train", training_cfg.seed + epoch, True),
-            "train"),
-        lambda split: runner.run_rows(eval_epoch, eval_perms[split], "eval"),
-        checkpointer, lambda: snapshot_state(model, opt, dropout_gen),
-        start_epoch, best_loss)
+    with trace(profile_dir, device):
+        best, history, stopped, epochs_run = run_fit_loop(
+            training_cfg, logger,
+            lambda epoch: (*runner.run_rows(
+                train_epoch,
+                split_perm("train", training_cfg.seed + epoch, True),
+                "train"), train_edges),
+            lambda split: runner.run_rows(eval_epoch, eval_perms[split],
+                                          "eval"),
+            checkpointer, lambda: snapshot_state(model, opt, dropout_gen),
+            start_epoch, best_loss)
     return runner.result(model, best, history, stopped, epochs_run)
 
 
@@ -446,8 +490,10 @@ def evaluate_checkpoint(model: torch.nn.Module, batches_by_split: dict,
     runner = _StepRunner(METRICS[training_cfg.metric], device, False)
     results = {}
     for split, batches in batches_by_split.items():
-        losses, scores, trues, masks = zip(*(eval_step(b.to(device))
-                                             for b in batches))
+        outs = [eval_step(b.to(device)) for b in batches]
+        for out in outs:
+            runner.check(out, "eval", "step")
+        losses, scores, trues, masks = zip(*outs)
         scores, trues, masks = (torch.cat(t) for t in (scores, trues, masks))
         loss, perf = runner.collect(torch.stack(losses), scores, trues,
                                     masks)

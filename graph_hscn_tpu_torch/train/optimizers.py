@@ -246,6 +246,20 @@ class Optimizer:
             state["mini"] = self.mini
         return state
 
+    def state_tensors(self) -> list[tuple[torch.nn.Parameter, str,
+                                          torch.Tensor]]:
+        """(parameter, key, tensor) of each tensor of the state kept for
+        a parameter that ``runtime.debug_nans`` checks: the inner
+        optimizer's moments and the accumulator ("acc").  Not the step
+        counts: JAX's are integers, which ``debug_nans`` does not check
+        (torch keeps a float one, on the host off the captured route)."""
+        out = [(p, key, t) for p in self.params
+               for key, t in self.opt.state.get(p, {}).items()
+               if torch.is_tensor(t) and key != "step"]
+        if self.accumulate > 1:
+            out += [(p, "acc", a) for p, a in zip(self.params, self.acc)]
+        return out
+
     def load_state_dict(self, state: dict) -> None:
         """Restore :meth:`state_dict` into an optimizer that has not
         stepped.  The inner optimizer's ``load_state_dict`` installs new

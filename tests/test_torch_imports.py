@@ -42,6 +42,9 @@ def test_sources_are_found():
     for name in ("loader", "native"):
         assert (ROOT / "graph_hscn_tpu_torch" / "data"
                 / f"{name}.py") in SOURCES
+    for path in ("utils/profiling.py", "utils/logger.py",
+                 "examples/hscn_walkthrough.py"):
+        assert ROOT / "graph_hscn_tpu_torch" / path in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -193,15 +193,8 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
     pytest.param("GCN/voc_superpixels_GCN_sparse.yaml",
                  {"mesh.shape": [16]}, ValueError, "needs 16 devices",
                  id="GCN/voc_superpixels_GCN_sparse.yaml-change5-mesh"),
-    pytest.param("GCN/voc_superpixels_GCN_sparse.yaml",
-                 {"runtime.debug_nans": True}, NotImplementedError,
-                 "debug_nans",
-                 id="GCN/voc_superpixels_GCN_sparse.yaml-change7-debug_nans"),
-    # Keys JAX reads and the port does not yet: refused, not ignored.
-    pytest.param("GCN/peptides_func_GCN.yaml",
-                 {"runtime.profile_dir": "trace"}, NotImplementedError,
-                 "profile_dir.*item 12",
-                 id="GCN/peptides_func_GCN.yaml-profile_dir"),
+    # runtime.debug_nans and runtime.profile_dir are ported
+    # (tests/test_torch_profiling.py): their cases left this list.
     # runtime.multihost is ported: "on" without a launcher's variables
     # raises, as JAX re-raises a failed initialize under "on".
     pytest.param("HSCN/peptides_func_HSCN.yaml",
@@ -210,10 +203,9 @@ def test_run_experiment_needs_a_card_by_default(monkeypatch):
                  id="HSCN/peptides_func_HSCN.yaml-multihost"),
 ])
 def test_run_experiment_later_slices_raise(path, change, error, match):
-    """The paths of later slices raise NotImplementedError naming their
-    ROADMAP item; a ValueError case is JAX's own refusal, which JAX's
-    run_experiment raises on the same config too; "multihost: on" without
-    a launcher raises RuntimeError."""
+    """Every path is ported: what still raises is JAX's own refusal (a
+    ValueError, which JAX's run_experiment raises on the same config too)
+    and "multihost: on" without a launcher (RuntimeError)."""
     cfgs = [_small_cfg(ROOT / "configs" / path)]
     if error is ValueError:
         from graph_hscn_tpu.config.config import load_config as jax_load

@@ -1,7 +1,8 @@
 """Run a function of this module on D gloo ranks, one process each, for
 the port's mesh tests (tests/test_torch_edge_partition.py,
-tests/test_torch_sharded_*.py, tests/test_torch_data_parallel.py and
-tests/test_torch_hybrid.py).
+tests/test_torch_sharded_*.py, tests/test_torch_data_parallel.py,
+tests/test_torch_hybrid.py and tests/test_torch_profiling.py); its
+:func:`poisoned` data also serves chip_smoke.py's ``debug_nans`` phase.
 
     outs = spawn("sharded_model", world=4, args={...}, tmp=tmp_path)
 
@@ -15,6 +16,7 @@ the port only, never JAX: the ranks do not load it.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import subprocess
@@ -484,6 +486,56 @@ def hybrid_cases(rank: int, world: int, shape, graphs, cases: dict,
         spmm.set_backend(previous)
     if cli is not None:
         out["cli"] = run_cli(rank, world, **cli)
+    return out
+
+
+@contextlib.contextmanager
+def poisoned(pipeline, mode: str):
+    """Within the block, ``pipeline.DataModule.from_config`` (the data
+    pipeline module of either package) puts a NaN into ``x[0, 0]`` of
+    every graph (``mode`` "all") or of graph 1 alone ("one"); "clean"
+    leaves the data as it is."""
+    cls = pipeline.DataModule
+    real = cls.__dict__["from_config"]
+
+    def from_config(klass, *args, **kwargs):
+        dm = real.__func__(klass, *args, **kwargs)
+        for g in {"all": dm.graphs, "one": dm.graphs[1:2],
+                  "clean": []}[mode]:
+            g.x[0, 0] = np.nan
+        return dm
+
+    cls.from_config = classmethod(from_config)
+    try:
+        yield
+    finally:
+        cls.from_config = real
+
+
+def nan_run(rank: int, world: int, runs: list[dict]) -> list[dict]:
+    """``run_experiment`` on this group of each of ``runs`` ({"raw", "mode",
+    "nans"}), in order, with ``runtime.debug_nans`` as "nans" says (the
+    guard reset first, as in a fresh process) and the data ``poisoned`` as
+    "mode" says: each {"raised": the FloatingPointError's message, or
+    None; "losses": the epochs' losses of a run that raised nothing}."""
+    from graph_hscn_tpu_torch.config.config import parse_config
+    from graph_hscn_tpu_torch.data import pipeline
+    from graph_hscn_tpu_torch.runner import run_experiment
+    from graph_hscn_tpu_torch.utils.profiling import nan_guard
+    out = []
+    for run in runs:
+        cfg = parse_config(run["raw"])
+        cfg.runtime.debug_nans = run["nans"]
+        nan_guard(False)
+        with poisoned(pipeline, run["mode"]):
+            try:
+                result = run_experiment(cfg, device="cpu")
+            except FloatingPointError as e:
+                out.append({"raised": str(e)})
+                continue
+        out.append({"raised": None, "losses": [
+            (h["train_loss"], h.get("validation_loss"), h.get("test_loss"))
+            for h in result.history]})
     return out
 
 
