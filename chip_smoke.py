@@ -228,8 +228,7 @@ Phases; any failure exits non-zero:
                each run, the losses bit for bit the same (the fused route's
                in a pair under torch's deterministic algorithms), NaN in
                every graph's features raising
-               FloatingPointError; (c) StepTimer around an epoch of the
-               sparse VOC GCN's train steps (edges/s); (d) the HSCN
+               FloatingPointError; (c) the HSCN
                walkthrough (graph_hscn_tpu_torch/examples) on the card.
 A [time] line gives the script's wall time.  The last three lines are the
 {"kernels": [...]} record, nvidia-smi's line, and {"ok": true, "device":
@@ -3987,49 +3986,8 @@ def support_nans() -> dict:
     return dict(total)
 
 
-def support_step_timer() -> None:
-    """[support] (c): StepTimer around an epoch of the sparse VOC GCN's
-    train steps (with the CSR plan, csr_spmm): edges/s, nodes/s, steps/s
-    over the epoch, the card synchronised at the report."""
-    import torch
-
-    from graph_hscn_tpu_torch.data.pipeline import DataModule
-    from graph_hscn_tpu_torch.models.mpnn import build_mpnn
-    from graph_hscn_tpu_torch.runner import set_matmul_precision
-    from graph_hscn_tpu_torch.train.loop import make_train_step
-    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
-    from graph_hscn_tpu_torch.utils.profiling import StepTimer
-
-    cfg = load_with(CONFIG)
-    set_matmul_precision(cfg.runtime.matmul_precision)
-    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
-    dm.with_spmm_plan = True
-    batches = list(dm.train_batches(epoch_seed=dm.seed))
-    model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                       compat=cfg.compat.double_relu, readout="none",
-                       generator=torch.Generator().manual_seed(0)).cuda()
-    opt = build_optimizer(model.parameters(), cfg.optim.optim_type,
-                          cfg.optim.lr, cfg.optim.weight_decay)
-    step, _ = make_train_step(model, opt, cfg.training.loss_fn,
-                              node_level=True,
-                              generator=torch.Generator(
-                                  device="cuda").manual_seed(0))
-    step(batches[0].to("cuda"))               # warm-up
-    timer = StepTimer()
-    for b in batches:
-        step(b.to("cuda"))
-        timer.update(int(b.edge_mask.sum()), int(b.node_mask.sum()))
-    r = timer.report()
-    print(f"[support] StepTimer, VOC sparse GCN, an epoch of {timer.steps} "
-          f"train steps (batch to the card and step): "
-          f"{r['edges_per_sec'] / 1e6:.3f} M edges/s, "
-          f"{r['nodes_per_sec'] / 1e6:.3f} M nodes/s, "
-          f"{r['steps_per_sec']:.1f} steps/s, {r['wall_sec']:.3f} s",
-          flush=True)
-
-
 def support_walkthrough() -> dict:
-    """[support] (d): the HSCN walkthrough on the card, every stage.
+    """[support] (c): the HSCN walkthrough on the card, every stage.
     Returns its launches."""
     from graph_hscn_tpu_torch.examples import hscn_walkthrough
     kernels = all_kernels()
@@ -4051,12 +4009,11 @@ def support_walkthrough() -> dict:
 
 def phase_support() -> dict:
     """[support]: utils/profiling.py and the walkthrough on the card
-    (``support_trace``, ``support_nans``, ``support_step_timer``,
-    ``support_walkthrough``).  Returns the phase's launches."""
+    (``support_trace``, ``support_nans``, ``support_walkthrough``).
+    Returns the phase's launches."""
     from collections import Counter
     launches = Counter(support_trace())
     launches.update(support_nans())
-    support_step_timer()
     launches.update(support_walkthrough())
     return dict(launches)
 

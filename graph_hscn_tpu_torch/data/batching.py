@@ -23,6 +23,7 @@ from typing import Iterable, Sequence
 import numpy as np
 
 from graph_hscn_tpu_torch.data.structures import DenseGraphBatch, GraphBatch
+from graph_hscn_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,126 +165,134 @@ def pack_batch(
     receiver sort).  ``slot_nodes``: slotted dense mode — graph i occupies
     node rows [i*slot, i*slot + n_i); overrides budget.num_nodes with
     (num_graphs-1)*slot.
+
+    A ``data.pack`` span, the plan a ``data.csr_plan`` span inside it.
     """
-    G = len(graphs)
-    if G >= budget.num_graphs:
-        raise ValueError(f"{G} graphs exceeds budget {budget.num_graphs - 1}")
-    tot_n = sum(g.num_nodes for g in graphs)
-    tot_e = sum(g.num_edges for g in graphs)
-    if slot_nodes is not None:
-        too_big = max(g.num_nodes for g in graphs)
-        if too_big > slot_nodes:
-            raise ValueError(f"graph with {too_big} nodes exceeds slot "
-                             f"{slot_nodes}")
-    elif tot_n >= budget.num_nodes:
-        raise ValueError(f"{tot_n} nodes exceeds budget {budget.num_nodes - 1}")
-    if tot_e > budget.num_edges:
-        raise ValueError(f"{tot_e} edges exceeds budget {budget.num_edges}")
-    if with_spmm_plan and not sort_edges_by_receiver:
-        raise ValueError("the SpMM plan needs receiver-sorted edges")
-
-    N, E, GP = budget.num_nodes, budget.num_edges, budget.num_graphs
-    if slot_nodes is not None:
-        N = (GP - 1) * slot_nodes
-    F = graphs[0].x.shape[1]
-
-    node_feat = np.zeros((N, F), dtype=np.float32)
-    senders = np.full((E,), N - 1, dtype=np.int32)
-    receivers = np.full((E,), N - 1, dtype=np.int32)
-    node_graph = np.full((N,), GP - 1, dtype=np.int32)
-    n_node = np.zeros((GP,), dtype=np.int32)
-    n_edge = np.zeros((GP,), dtype=np.int32)
-    node_mask = np.zeros((N,), dtype=bool)
-    edge_mask = np.zeros((E,), dtype=bool)
-    graph_mask = np.zeros((GP,), dtype=bool)
-
-    has_edge_attr = graphs[0].edge_attr is not None
-    has_edge_weight = graphs[0].edge_weight is not None
-    edge_feat = None
-    edge_weight = None
-    if has_edge_attr:
-        Fe = graphs[0].edge_attr.shape[1]
-        edge_feat = np.zeros((E, Fe), dtype=np.float32)
-    if has_edge_weight:
-        edge_weight = np.zeros((E,), dtype=np.float32)
-
-    y = None
-    if graphs[0].y is not None:
-        C = int(np.asarray(graphs[0].y).reshape(-1).shape[0])
-        y = np.zeros((GP, C), dtype=np.float32)
-    node_y = None
-    if graphs[0].node_y is not None:
-        Cn = graphs[0].node_y.shape[1]
-        node_y = np.zeros((N, Cn), dtype=np.float32)
-
-    def _opt_node_field(name):
-        if getattr(graphs[0], name) is None:
-            return None
-        K = getattr(graphs[0], name).shape[1]
-        return np.zeros((N, K), dtype=np.float32)
-
-    node_pe = _opt_node_field("node_pe")
-    eigvals = _opt_node_field("eigvals")
-    eigvecs = _opt_node_field("eigvecs")
-    cluster = (np.zeros((N,), dtype=np.int32)
-               if graphs[0].cluster is not None else None)
-
-    n_off = 0
-    e_off = 0
-    for gi, g in enumerate(graphs):
+    with span("data.pack"):
+        G = len(graphs)
+        if G >= budget.num_graphs:
+            raise ValueError(f"{G} graphs exceeds budget "
+                             f"{budget.num_graphs - 1}")
+        tot_n = sum(g.num_nodes for g in graphs)
+        tot_e = sum(g.num_edges for g in graphs)
         if slot_nodes is not None:
-            n_off = gi * slot_nodes
-        n, e = g.num_nodes, g.num_edges
-        node_feat[n_off:n_off + n] = g.x.astype(np.float32)
-        senders[e_off:e_off + e] = g.edge_index[0] + n_off
-        receivers[e_off:e_off + e] = g.edge_index[1] + n_off
-        node_graph[n_off:n_off + n] = gi
-        n_node[gi] = n
-        n_edge[gi] = e
-        node_mask[n_off:n_off + n] = True
-        edge_mask[e_off:e_off + e] = True
-        graph_mask[gi] = True
+            too_big = max(g.num_nodes for g in graphs)
+            if too_big > slot_nodes:
+                raise ValueError(f"graph with {too_big} nodes exceeds slot "
+                                 f"{slot_nodes}")
+        elif tot_n >= budget.num_nodes:
+            raise ValueError(f"{tot_n} nodes exceeds budget "
+                             f"{budget.num_nodes - 1}")
+        if tot_e > budget.num_edges:
+            raise ValueError(f"{tot_e} edges exceeds budget "
+                             f"{budget.num_edges}")
+        if with_spmm_plan and not sort_edges_by_receiver:
+            raise ValueError("the SpMM plan needs receiver-sorted edges")
+
+        N, E, GP = budget.num_nodes, budget.num_edges, budget.num_graphs
+        if slot_nodes is not None:
+            N = (GP - 1) * slot_nodes
+        F = graphs[0].x.shape[1]
+
+        node_feat = np.zeros((N, F), dtype=np.float32)
+        senders = np.full((E,), N - 1, dtype=np.int32)
+        receivers = np.full((E,), N - 1, dtype=np.int32)
+        node_graph = np.full((N,), GP - 1, dtype=np.int32)
+        n_node = np.zeros((GP,), dtype=np.int32)
+        n_edge = np.zeros((GP,), dtype=np.int32)
+        node_mask = np.zeros((N,), dtype=bool)
+        edge_mask = np.zeros((E,), dtype=bool)
+        graph_mask = np.zeros((GP,), dtype=bool)
+
+        has_edge_attr = graphs[0].edge_attr is not None
+        has_edge_weight = graphs[0].edge_weight is not None
+        edge_feat = None
+        edge_weight = None
         if has_edge_attr:
-            edge_feat[e_off:e_off + e] = g.edge_attr.astype(np.float32)
+            Fe = graphs[0].edge_attr.shape[1]
+            edge_feat = np.zeros((E, Fe), dtype=np.float32)
         if has_edge_weight:
-            edge_weight[e_off:e_off + e] = g.edge_weight.astype(np.float32)
-        if y is not None:
-            y[gi] = np.asarray(g.y, dtype=np.float32).reshape(-1)
-        if node_y is not None:
-            node_y[n_off:n_off + n] = g.node_y.astype(np.float32)
-        for arr, name in ((node_pe, "node_pe"), (eigvals, "eigvals"),
-                          (eigvecs, "eigvecs")):
-            if arr is not None:
-                arr[n_off:n_off + n] = getattr(g, name).astype(np.float32)
-        if cluster is not None:
-            cluster[n_off:n_off + n] = g.cluster.astype(np.int32)
-        n_off += n
-        e_off += e
+            edge_weight = np.zeros((E,), dtype=np.float32)
 
-    if sort_edges_by_receiver:
-        # Stable sort keeps same-receiver edges in insertion (sender) order.
-        order = np.argsort(receivers, kind="stable")
-        senders = senders[order]
-        receivers = receivers[order]
-        edge_mask = edge_mask[order]
-        if edge_feat is not None:
-            edge_feat = edge_feat[order]
-        if edge_weight is not None:
-            edge_weight = edge_weight[order]
+        y = None
+        if graphs[0].y is not None:
+            C = int(np.asarray(graphs[0].y).reshape(-1).shape[0])
+            y = np.zeros((GP, C), dtype=np.float32)
+        node_y = None
+        if graphs[0].node_y is not None:
+            Cn = graphs[0].node_y.shape[1]
+            node_y = np.zeros((N, Cn), dtype=np.float32)
 
-    spmm = None
-    if with_spmm_plan:
-        from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_plan
-        spmm = csr_plan(senders, receivers, edge_mask, N)
+        def _opt_node_field(name):
+            if getattr(graphs[0], name) is None:
+                return None
+            K = getattr(graphs[0], name).shape[1]
+            return np.zeros((N, K), dtype=np.float32)
 
-    return GraphBatch(
-        node_feat=node_feat, senders=senders, receivers=receivers,
-        node_graph=node_graph, n_node=n_node, n_edge=n_edge,
-        node_mask=node_mask, edge_mask=edge_mask, graph_mask=graph_mask,
-        edge_feat=edge_feat, edge_weight=edge_weight, y=y, node_y=node_y,
-        node_pe=node_pe, eigvals=eigvals, eigvecs=eigvecs, cluster=cluster,
-        spmm=spmm, slot=slot_nodes,
-    )
+        node_pe = _opt_node_field("node_pe")
+        eigvals = _opt_node_field("eigvals")
+        eigvecs = _opt_node_field("eigvecs")
+        cluster = (np.zeros((N,), dtype=np.int32)
+                   if graphs[0].cluster is not None else None)
+
+        n_off = 0
+        e_off = 0
+        for gi, g in enumerate(graphs):
+            if slot_nodes is not None:
+                n_off = gi * slot_nodes
+            n, e = g.num_nodes, g.num_edges
+            node_feat[n_off:n_off + n] = g.x.astype(np.float32)
+            senders[e_off:e_off + e] = g.edge_index[0] + n_off
+            receivers[e_off:e_off + e] = g.edge_index[1] + n_off
+            node_graph[n_off:n_off + n] = gi
+            n_node[gi] = n
+            n_edge[gi] = e
+            node_mask[n_off:n_off + n] = True
+            edge_mask[e_off:e_off + e] = True
+            graph_mask[gi] = True
+            if has_edge_attr:
+                edge_feat[e_off:e_off + e] = g.edge_attr.astype(np.float32)
+            if has_edge_weight:
+                edge_weight[e_off:e_off + e] = g.edge_weight.astype(np.float32)
+            if y is not None:
+                y[gi] = np.asarray(g.y, dtype=np.float32).reshape(-1)
+            if node_y is not None:
+                node_y[n_off:n_off + n] = g.node_y.astype(np.float32)
+            for arr, name in ((node_pe, "node_pe"), (eigvals, "eigvals"),
+                              (eigvecs, "eigvecs")):
+                if arr is not None:
+                    arr[n_off:n_off + n] = getattr(g, name).astype(np.float32)
+            if cluster is not None:
+                cluster[n_off:n_off + n] = g.cluster.astype(np.int32)
+            n_off += n
+            e_off += e
+
+        if sort_edges_by_receiver:
+            # Stable sort keeps same-receiver edges in insertion (sender)
+            # order.
+            order = np.argsort(receivers, kind="stable")
+            senders = senders[order]
+            receivers = receivers[order]
+            edge_mask = edge_mask[order]
+            if edge_feat is not None:
+                edge_feat = edge_feat[order]
+            if edge_weight is not None:
+                edge_weight = edge_weight[order]
+
+        spmm = None
+        if with_spmm_plan:
+            from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_plan
+            with span("data.csr_plan"):
+                spmm = csr_plan(senders, receivers, edge_mask, N)
+
+        return GraphBatch(
+            node_feat=node_feat, senders=senders, receivers=receivers,
+            node_graph=node_graph, n_node=n_node, n_edge=n_edge,
+            node_mask=node_mask, edge_mask=edge_mask, graph_mask=graph_mask,
+            edge_feat=edge_feat, edge_weight=edge_weight, y=y, node_y=node_y,
+            node_pe=node_pe, eigvals=eigvals, eigvecs=eigvecs, cluster=cluster,
+            spmm=spmm, slot=slot_nodes,
+        )
 
 
 def iter_batches(

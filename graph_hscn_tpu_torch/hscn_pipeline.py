@@ -13,8 +13,8 @@ batches packed on the host (sparse with a CSR plan, or slotted), or the
 device-resident dataset, shared by clustering and the HSCN fit.
 
 As in JAX, the device-resident route's HSCN fit logs the train split's
-edges a second and runs inside ``runtime.profile_dir``'s trace; the host
-route's does neither.
+edges a second; the host route's does not.  Stages 1 and 2, on either
+route, are the ``setup.clustering`` span (utils/profiling.py).
 
 With a ``Checkpointer`` the HSCN fit saves and resumes as any fit does;
 its snapshots hold the HSCN's weights only.  The clusters are not in
@@ -36,6 +36,7 @@ from graph_hscn_tpu_torch.train.clustering import (train_clustering,
 from graph_hscn_tpu_torch.train.device_data import DeviceDataset
 from graph_hscn_tpu_torch.train.loop import (FitResult, fit,
                                              fit_on_device_dataset)
+from graph_hscn_tpu_torch.utils.profiling import span
 
 
 def _models(cfg: ExperimentConfig, dm: DataModule, max_nodes: int, device,
@@ -63,16 +64,17 @@ def run_hscn_pipeline(cfg: ExperimentConfig, dm: DataModule, logger,
     if use_device_dataset:
         return run_hscn_pipeline_device(cfg, dm, logger, device,
                                         compute_dtype, step_timing,
-                                        checkpointer,
-                                        profile_dir=cfg.runtime.profile_dir)
+                                        checkpointer)
     model, cluster_losses = cluster_on_host(cfg, dm, logger, device,
                                             compute_dtype)
+    with span("setup.data"):    # the eval batches, with their clusters
+        val, test = dm.eval_batches("val"), dm.eval_batches("test")
     result = fit(
         model,
         # A fresh batch composition every epoch, seed + epoch as in the
         # device-resident route.
         lambda epoch: dm.train_batches(epoch_seed=dm.seed + epoch),
-        dm.eval_batches("val"), dm.eval_batches("test"),
+        val, test,
         cfg.optim, cfg.training, logger, device,
         node_level=dm.task_level == "node",
         compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
@@ -88,18 +90,19 @@ def cluster_on_host(cfg: ExperimentConfig, dm: DataModule, logger,
     the clustering epochs' mean losses)."""
     scn, model = _models(cfg, dm, _round8(dm.max_nodes_per_graph()), device,
                          compute_dtype)
-    clusters, cluster_losses = train_clustering(
-        logger, dm, scn, cfg.hscn, cfg.optim, seed=cfg.training.seed,
-        device=device)
-    dm.graphs = [g.replace(cluster=c) for g, c in zip(dm.graphs, clusters)]
+    with span("setup.clustering"):
+        clusters, cluster_losses = train_clustering(
+            logger, dm, scn, cfg.hscn, cfg.optim, seed=cfg.training.seed,
+            device=device)
+        dm.graphs = [g.replace(cluster=c)
+                     for g, c in zip(dm.graphs, clusters)]
     return model, cluster_losses
 
 
 def run_hscn_pipeline_device(cfg: ExperimentConfig, dm: DataModule, logger,
                              device: torch.device, compute_dtype=None,
                              step_timing: bool = False,
-                             checkpointer=None,
-                             profile_dir: str | None = None) -> FitResult:
+                             checkpointer=None) -> FitResult:
     """The device-resident route: one dataset on ``device`` (train, val,
     test in that order) for the clustering pre-train, the assignments
     written back into it, and the HSCN fit.  On the card each stage
@@ -115,15 +118,17 @@ def run_hscn_pipeline_device(cfg: ExperimentConfig, dm: DataModule, logger,
                  "val": np.arange(n_tr, n_tr + n_va),
                  "test": np.arange(n_tr + n_va, len(all_graphs))}
     scn, model = _models(cfg, dm, ds.slot, device, compute_dtype)
-    ds, cluster_losses = train_clustering_device(
-        logger, ds, dm.batch_size, scn, cfg.hscn, cfg.optim,
-        seed=cfg.training.seed)
+    with span("setup.clustering"):
+        ds, cluster_losses = train_clustering_device(
+            logger, ds, dm.batch_size, scn, cfg.hscn, cfg.optim,
+            seed=cfg.training.seed)
+        if ds.cluster.is_cuda:      # the assignments in place
+            torch.cuda.synchronize(ds.cluster.device)
     result = fit_on_device_dataset(
         model, ds, split_ids, dm.batch_size, cfg.optim, cfg.training,
         logger, device, node_level=dm.task_level == "node",
         compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
         step_timing=step_timing, checkpointer=checkpointer,
-        profile_dir=profile_dir,
         train_edges=sum(g.num_edges for g in splits["train"]))
     result.cluster_losses = cluster_losses
     return result

@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import CsrPlan, csr_plan
 from graph_hscn_tpu_torch.ops.segment import segment_sum
+from graph_hscn_tpu_torch.utils.profiling import span
 
 
 def partition_edges_by_receiver(senders: np.ndarray, receivers: np.ndarray,
@@ -294,19 +295,26 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _):
         out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        with span("comm.halo"):
+            dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
         return out, None
 
 
 class Halo:
     """A halo exchange in flight: :meth:`wait` returns the [D*H, F] table
-    (block o = what rank o sent this one)."""
+    (block o = what rank o sent this one).  ``exchange``: its open
+    ``comm.halo`` span, closed by the first wait; a later wait returns the
+    same table.  Wait every halo started, in the step that started it: an
+    unwaited one leaves its span open on the thread."""
 
-    def __init__(self, inbound: torch.Tensor, work):
-        self._inbound, self._work = inbound, work
+    def __init__(self, inbound: torch.Tensor, work, exchange: span):
+        self._inbound, self._work, self._exchange = inbound, work, exchange
 
     def wait(self) -> torch.Tensor:
-        self._work.wait()
+        if self._exchange is not None:
+            self._work.wait()
+            self._exchange.__exit__(None, None, None)
+            self._exchange = None
         return self._inbound
 
 
@@ -316,17 +324,21 @@ def start_halo(x_blk: torch.Tensor, send_idx: torch.Tensor,
     (the rank's row of the plan's send_idx, flattened) picks the rows
     each rank needs from this one.  Differentiable; the backward of the
     gather is an ``index_add_`` into the rows sent, and the padding slots
-    (local row 0) receive a zero gradient, since no edge reads them."""
+    (local row 0) receive a zero gradient, since no edge reads them.
+    A ``comm.halo`` span from the send to the wait; the backward's
+    exchange is one more."""
     outbound = x_blk.index_select(0, send_idx).contiguous()
-    return Halo(*_AllToAll.apply(outbound, group))
+    exchange = span("comm.halo").__enter__()
+    return Halo(*_AllToAll.apply(outbound, group), exchange)
 
 
 def all_gather_rows(x_blk: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's [Nb, F] block, concatenated in rank order: [D*Nb, F]
-    (not differentiable)."""
+    (not differentiable).  A ``comm.all_gather`` span."""
     parts = [torch.empty_like(x_blk)
              for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x_blk.contiguous(), group=group)
+    with span("comm.all_gather"):
+        dist.all_gather(parts, x_blk.contiguous(), group=group)
     return torch.cat(parts)
 
 

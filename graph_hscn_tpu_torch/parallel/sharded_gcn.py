@@ -68,7 +68,8 @@ from graph_hscn_tpu_torch.train.loop import (FitResult, _maybe_resume,
                                              snapshot_state)
 from graph_hscn_tpu_torch.train.metrics import METRICS
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
-from graph_hscn_tpu_torch.utils.profiling import check_nans, training_state
+from graph_hscn_tpu_torch.utils.profiling import (check_nans, span,
+                                                  training_state)
 
 # Below this many columns (H*C for GAT) the local aggregation stays a
 # plain gather and index_add_, as JAX's width gate (sharded_gcn.py:91-93).
@@ -417,12 +418,13 @@ def all_reduce_grads(params: list, group, loss: torch.Tensor | None = None
     """Every parameter's gradient (zeros where it has none) summed over
     the ranks, and ``loss`` (0-d) with them where given, in one
     ``all_reduce`` of a flat buffer; the sums are left in ``p.grad``.
-    Returns the summed loss, or None."""
+    Returns the summed loss, or None.  A ``comm.all_reduce`` span."""
     extra = [] if loss is None else [loss.reshape(1)]
     flat = torch.cat([(p.grad if p.grad is not None
                        else torch.zeros_like(p)).reshape(-1)
                       for p in params] + extra)
-    dist.all_reduce(flat, group=group)
+    with span("comm.all_reduce"):
+        dist.all_reduce(flat, group=group)
     offset = 0
     for p in params:
         p.grad = flat[offset:offset + p.numel()].view_as(p)

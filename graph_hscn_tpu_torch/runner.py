@@ -29,10 +29,10 @@ is the eval-only mode of ``main.py --eval``.
 Execution paths are routed as in the JAX package (runner.py:49-61, :63-67,
 :71-118, :120-238, :322-360).  ``runtime.debug_nans`` turns the NaN check
 of every route on (utils/profiling.py:nan_guard) before any data moves;
-``runtime.profile_dir`` traces the device-resident fits, the only ones
-JAX traces, and elsewhere logs a warning naming the route, so that no
-config trains as if it had not set a key; ``training.use_wandb`` logs to
-wandb from rank 0.
+``runtime.profile_dir`` traces every route from its dispatch on
+(clustering included; JAX traces the device-resident fits alone), the
+port's spans among the trace's ranges; ``training.use_wandb`` logs to
+wandb from rank 0.  Reading the data is the ``setup.data`` span.
 
 Runs on ``cuda`` unless the caller passes another device; without a card
 that raises.
@@ -70,7 +70,7 @@ from graph_hscn_tpu_torch.train.loop import (FitResult, evaluate_checkpoint,
                                              fit, fit_device)
 from graph_hscn_tpu_torch.transform.posenc import attach_posenc
 from graph_hscn_tpu_torch.utils.logger import Logger
-from graph_hscn_tpu_torch.utils.profiling import nan_guard
+from graph_hscn_tpu_torch.utils.profiling import nan_guard, span, trace
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -136,28 +136,31 @@ def _data(cfg: ExperimentConfig, device, logger) -> DataModule:
     """The dataset, its execution path (slotted dense blocks for
     molecular-scale graphs, CSR plans for the sparse kernel path, as the
     JAX runner picks them) and, with ``pe``, its positional encodings."""
-    dm = DataModule.from_config(cfg.data, pad_safety=cfg.runtime.pad_safety)
-    logger.info(f"Dataset {cfg.data.dataset_name}: {len(dm.graphs)} graphs, "
-                f"budget nodes={dm.budget.num_nodes} "
-                f"edges={dm.budget.num_edges}")
-    if dm.budgets is not None and len(dm.budgets) > 1:
-        logger.info("Shape buckets: " + ", ".join(
-            f"(n={b.num_nodes}, e={b.num_edges})" for b in dm.budgets))
-    if cfg.runtime.dense_path in ("auto", "dense"):
-        enabled = dm.enable_dense_slots(max_slot=D.DENSE_PATH_MAX_NODES)
-        if enabled:
-            logger.info(f"Dense slotted path on: slot={dm.slot_nodes}")
-        elif cfg.runtime.dense_path == "dense":
-            raise ValueError("dense path requested but a graph exceeds "
-                             f"max slot {D.DENSE_PATH_MAX_NODES}")
-    if cfg.runtime.spmm_backend in ("auto", "pallas") and not dm.slot_nodes:
-        dm.with_spmm_plan = (device.type == "cuda"
-                             or cfg.runtime.spmm_backend == "pallas")
-    if cfg.pe is not None:
-        attach_posenc(dm, cfg.pe, logger,
-                      frozen_random=cfg.compat.frozen_random_signnet,
-                      seed=cfg.training.seed, device=device)
-    return dm
+    with span("setup.data"):
+        dm = DataModule.from_config(cfg.data,
+                                    pad_safety=cfg.runtime.pad_safety)
+        logger.info(f"Dataset {cfg.data.dataset_name}: {len(dm.graphs)} "
+                    f"graphs, budget nodes={dm.budget.num_nodes} "
+                    f"edges={dm.budget.num_edges}")
+        if dm.budgets is not None and len(dm.budgets) > 1:
+            logger.info("Shape buckets: " + ", ".join(
+                f"(n={b.num_nodes}, e={b.num_edges})" for b in dm.budgets))
+        if cfg.runtime.dense_path in ("auto", "dense"):
+            enabled = dm.enable_dense_slots(max_slot=D.DENSE_PATH_MAX_NODES)
+            if enabled:
+                logger.info(f"Dense slotted path on: slot={dm.slot_nodes}")
+            elif cfg.runtime.dense_path == "dense":
+                raise ValueError("dense path requested but a graph exceeds "
+                                 f"max slot {D.DENSE_PATH_MAX_NODES}")
+        if (cfg.runtime.spmm_backend in ("auto", "pallas")
+                and not dm.slot_nodes):
+            dm.with_spmm_plan = (device.type == "cuda"
+                                 or cfg.runtime.spmm_backend == "pallas")
+        if cfg.pe is not None:
+            attach_posenc(dm, cfg.pe, logger,
+                          frozen_random=cfg.compat.frozen_random_signnet,
+                          seed=cfg.training.seed, device=device)
+        return dm
 
 
 def _model(cfg: ExperimentConfig, dm, device, compute_dtype, logger,
@@ -313,70 +316,60 @@ def _data_parallel(cfg: ExperimentConfig, dm, model, device, logger,
                   checkpointer=_checkpointer(cfg), step_timing=step_timing)
 
 
-def _untraced(cfg: ExperimentConfig, logger, route: str) -> None:
-    """``runtime.profile_dir`` on a route JAX does not trace (it reads the
-    key in ``fit_device`` and the device-resident HSCN pipeline alone):
-    one warning, and the run goes on as without the key."""
-    if cfg.runtime.profile_dir:
-        logger.logger.warning(
-            f"runtime.profile_dir is not traced on the {route} route (the "
-            "JAX package traces the device-resident fits alone); training "
-            "without a trace.")
-
-
 def _run(cfg, device, compute_dtype, logger, step_timing,
          data_parallel: bool = False) -> FitResult:
     group = (process_group(device, cfg.runtime.multihost) if data_parallel
              else _group_for(cfg, device))
     with group as device:
         dm = _data(cfg, device, logger)
-        route, shape = _mesh_route(cfg, dm)
-        if data_parallel:
-            if route not in (None, "dp") or cfg.hscn is not None:
-                raise ValueError("data_parallel takes an MPNN config "
-                                 "without mesh.edge_partition")
-            route = "dp"
-        if route in ("edge", "hybrid"):
-            _untraced(cfg, logger, {"edge": "edge-partitioned",
-                                    "hybrid": "hybrid"}[route])
-            return _edge_partitioned(cfg, dm, route, shape, device,
-                                     compute_dtype, logger,
-                                     step_timing=step_timing)
-        if cfg.hscn is not None:
-            on_device = _use_device_dataset(cfg, dm)
-            if not on_device:
-                _untraced(cfg, logger, "host-loop HSCN")
-            return run_hscn_pipeline(
-                cfg, dm, logger, device, compute_dtype,
-                use_device_dataset=on_device,
-                step_timing=step_timing, checkpointer=_checkpointer(cfg))
-        model = _model(cfg, dm, device, compute_dtype, logger)
-        if route == "dp":
-            _untraced(cfg, logger, "data-parallel")
-            return _data_parallel(cfg, dm, model, device, logger, shape,
-                                  step_timing)
-        if _use_device_dataset(cfg, dm):
-            logger.info("Device-resident dataset path on.")
-            return fit_device(
-                model, dm.split("train"), dm.split("val"), dm.split("test"),
-                batch_size=cfg.data.batch_size, optim_cfg=cfg.optim,
-                training_cfg=cfg.training, logger=logger, device=device,
-                node_level=dm.task_level == "node",
-                compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-                slot=dm.slot_nodes, step_timing=step_timing,
-                checkpointer=_checkpointer(cfg),
-                profile_dir=cfg.runtime.profile_dir)
-        _untraced(cfg, logger, "host-loop")
-        return fit(
-            model,
-            # Fresh batch composition every epoch (reference DataLoader
-            # shuffle=True semantics, loader.py:48-60).
-            lambda epoch: dm.train_batches(epoch_seed=dm.seed + epoch),
-            dm.eval_batches("val"), dm.eval_batches("test"),
-            cfg.optim, cfg.training, logger, device,
+        with trace(cfg.runtime.profile_dir, device):
+            return _dispatch(cfg, dm, device, compute_dtype, logger,
+                             step_timing, data_parallel)
+
+
+def _dispatch(cfg, dm, device, compute_dtype, logger, step_timing,
+              data_parallel: bool) -> FitResult:
+    """The fit of the route ``cfg`` takes on ``dm``."""
+    route, shape = _mesh_route(cfg, dm)
+    if data_parallel:
+        if route not in (None, "dp") or cfg.hscn is not None:
+            raise ValueError("data_parallel takes an MPNN config "
+                             "without mesh.edge_partition")
+        route = "dp"
+    if route in ("edge", "hybrid"):
+        return _edge_partitioned(cfg, dm, route, shape, device,
+                                 compute_dtype, logger,
+                                 step_timing=step_timing)
+    if cfg.hscn is not None:
+        return run_hscn_pipeline(
+            cfg, dm, logger, device, compute_dtype,
+            use_device_dataset=_use_device_dataset(cfg, dm),
+            step_timing=step_timing, checkpointer=_checkpointer(cfg))
+    model = _model(cfg, dm, device, compute_dtype, logger)
+    if route == "dp":
+        return _data_parallel(cfg, dm, model, device, logger, shape,
+                              step_timing)
+    if _use_device_dataset(cfg, dm):
+        logger.info("Device-resident dataset path on.")
+        return fit_device(
+            model, dm.split("train"), dm.split("val"), dm.split("test"),
+            batch_size=cfg.data.batch_size, optim_cfg=cfg.optim,
+            training_cfg=cfg.training, logger=logger, device=device,
             node_level=dm.task_level == "node",
             compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
-            step_timing=step_timing, checkpointer=_checkpointer(cfg))
+            slot=dm.slot_nodes, step_timing=step_timing,
+            checkpointer=_checkpointer(cfg))
+    with span("setup.data"):
+        val, test = dm.eval_batches("val"), dm.eval_batches("test")
+    return fit(
+        model,
+        # Fresh batch composition every epoch (reference DataLoader
+        # shuffle=True semantics, loader.py:48-60).
+        lambda epoch: dm.train_batches(epoch_seed=dm.seed + epoch),
+        val, test, cfg.optim, cfg.training, logger, device,
+        node_level=dm.task_level == "node",
+        compat_sigmoid_score=cfg.compat.sigmoid_regression_score,
+        step_timing=step_timing, checkpointer=_checkpointer(cfg))
 
 
 def run_eval(cfg: ExperimentConfig, which: str = "best", device=None,

@@ -17,6 +17,8 @@ every tensor to host memory on the caller's thread, between steps, then
 hands the host copy to one background thread for the file writes, so the
 fit goes on stepping.  At most one write is in flight; every entry point
 fences on it first, and a background failure re-raises at the next fence.
+A save is a ``checkpoint.save`` span (utils/profiling.py) on the caller's
+thread: the fence, the copy to host memory and the hand-off.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from graph_hscn_tpu_torch.utils.profiling import span
 
 
 def to_host(tree):
@@ -92,10 +96,12 @@ class Checkpointer:
             self.wait()
 
     def save_best(self, state: dict, epoch: int, val_loss: float) -> None:
-        self._save("best", state, {"epoch": epoch, "val_loss": val_loss})
+        with span("checkpoint.save"):
+            self._save("best", state, {"epoch": epoch, "val_loss": val_loss})
 
     def save_latest(self, state: dict, epoch: int) -> None:
-        self._save("latest", state, {"epoch": epoch})
+        with span("checkpoint.save"):
+            self._save("latest", state, {"epoch": epoch})
 
     def restore(self, name: str, device: torch.device | str = "cpu"
                 ) -> tuple[dict, dict]:

@@ -120,8 +120,10 @@ def train_clustering_device(logger, ds: DeviceDataset, batch_size: int, scn,
         s, _, _ = scn(batch)
         return (s.argmax(-1).reshape(batch_size, -1).to(torch.int32),)
 
-    train_epoch = RowSteps(mincut_step, ds, rows, counter, capture, pool)
-    infer_all = RowSteps(assign_step, ds, rows, counter, capture, pool)
+    train_epoch = RowSteps(mincut_step, ds, rows, counter, capture, pool,
+                           name="cluster_step")
+    infer_all = RowSteps(assign_step, ds, rows, counter, capture, pool,
+                         name="cluster_step")
     scn.train()
     means = []
     for epoch in range(hscn_cfg.cluster_epochs):

@@ -38,6 +38,7 @@ import torch
 from graph_hscn_tpu_torch.data.structures import GraphBatch
 from graph_hscn_tpu_torch.train.capture import (CapturedStep,
                                                 run_on_side_stream)
+from graph_hscn_tpu_torch.utils.profiling import span
 
 # The JAX package's budget for the adjacency cache: NG * slot^2 2-byte
 # counts (device_data.py:135-141).  The port keeps its counts in int16
@@ -89,76 +90,77 @@ class DeviceDataset:
         when NG * slot^2 * 2 bytes fit ``ADJ_CACHE_BUDGET_BYTES``.
         ``with_cluster`` gives the dataset a ``cluster`` field (zeros where
         the graphs carry none) for the HSCN pipeline to write its
-        assignments into."""
-        NG = len(graphs)
-        if any(g.edge_weight is not None for g in graphs):
-            # The layout carries no per-edge weights (assemble emits
-            # edge_weight=None): refuse instead of dropping them silently.
-            raise ValueError(
-                "DeviceDataset does not carry edge_weight; use the host "
-                "batched path (runtime.device_dataset: off) for "
-                "weighted graphs")
-        F = graphs[0].x.shape[1]
-        slot = slot or ((max(g.num_nodes for g in graphs) + 7) // 8) * 8
-        e_slot = ((max(g.num_edges for g in graphs) + 127) // 128) * 128
-        nodes = np.zeros((NG, slot, F), np.float32)
-        n_node = np.zeros((NG,), np.int32)
-        src = np.zeros((NG, e_slot), np.int32)
-        dst = np.zeros((NG, e_slot), np.int32)
-        ok = np.zeros((NG, e_slot), bool)
-        g0 = graphs[0]
-        has_y = g0.y is not None
-        has_ny = g0.node_y is not None
-        has_cl = g0.cluster is not None or with_cluster
-        has_ev = g0.eigvecs is not None
-        has_ea = g0.edge_attr is not None
-        edge_feat = (np.zeros((NG, e_slot, g0.edge_attr.shape[1]),
-                              np.float32) if has_ea else None)
-        y = (np.zeros((NG, np.asarray(g0.y).reshape(-1).shape[0]),
-                      np.float32) if has_y else None)
-        node_y = (np.zeros((NG, slot, g0.node_y.shape[1]), np.float32)
-                  if has_ny else None)
-        cluster = np.zeros((NG, slot), np.int32) if has_cl else None
-        eigvecs = (np.zeros((NG, slot, g0.eigvecs.shape[1]), np.float32)
-                   if has_ev else None)
-        eigvals = (np.zeros((NG, slot, g0.eigvals.shape[1]), np.float32)
-                   if has_ev else None)
-        for i, g in enumerate(graphs):
-            n, e = g.num_nodes, g.num_edges
-            if n > slot or e > e_slot:
-                raise ValueError(f"graph {i} ({n} nodes, {e} edges) exceeds "
-                                 f"slot {slot} / e_slot {e_slot}")
-            nodes[i, :n] = g.x
-            n_node[i] = n
-            order = np.argsort(g.edge_index[1], kind="stable")
-            src[i, :e] = g.edge_index[0][order]
-            dst[i, :e] = g.edge_index[1][order]
-            ok[i, :e] = True
-            if has_ea:
-                edge_feat[i, :e] = g.edge_attr[order]
-            if has_y:
-                y[i] = np.asarray(g.y, np.float32).reshape(-1)
-            if has_ny:
-                node_y[i, :n] = g.node_y
-            if has_cl and g.cluster is not None:
-                cluster[i, :n] = g.cluster
-            if has_ev:
-                eigvecs[i, :n] = np.nan_to_num(g.eigvecs)
-                eigvals[i, :n] = np.nan_to_num(g.eigvals)
-        ds = DeviceDataset(nodes=nodes, n_node=n_node, edges_src=src,
-                           edges_dst=dst, edge_ok=ok, edge_feat=edge_feat,
-                           y=y, node_y=node_y, cluster=cluster,
-                           eigvecs=eigvecs, eigvals=eigvals, slot=slot,
-                           e_slot=e_slot)
-        if device is None:
+        assignments into.  A ``setup.device_dataset`` span."""
+        with span("setup.device_dataset"):
+            NG = len(graphs)
+            if any(g.edge_weight is not None for g in graphs):
+                # The layout carries no per-edge weights (assemble emits
+                # edge_weight=None): refuse instead of dropping them silently.
+                raise ValueError(
+                    "DeviceDataset does not carry edge_weight; use the host "
+                    "batched path (runtime.device_dataset: off) for "
+                    "weighted graphs")
+            F = graphs[0].x.shape[1]
+            slot = slot or ((max(g.num_nodes for g in graphs) + 7) // 8) * 8
+            e_slot = ((max(g.num_edges for g in graphs) + 127) // 128) * 128
+            nodes = np.zeros((NG, slot, F), np.float32)
+            n_node = np.zeros((NG,), np.int32)
+            src = np.zeros((NG, e_slot), np.int32)
+            dst = np.zeros((NG, e_slot), np.int32)
+            ok = np.zeros((NG, e_slot), bool)
+            g0 = graphs[0]
+            has_y = g0.y is not None
+            has_ny = g0.node_y is not None
+            has_cl = g0.cluster is not None or with_cluster
+            has_ev = g0.eigvecs is not None
+            has_ea = g0.edge_attr is not None
+            edge_feat = (np.zeros((NG, e_slot, g0.edge_attr.shape[1]),
+                                  np.float32) if has_ea else None)
+            y = (np.zeros((NG, np.asarray(g0.y).reshape(-1).shape[0]),
+                          np.float32) if has_y else None)
+            node_y = (np.zeros((NG, slot, g0.node_y.shape[1]), np.float32)
+                      if has_ny else None)
+            cluster = np.zeros((NG, slot), np.int32) if has_cl else None
+            eigvecs = (np.zeros((NG, slot, g0.eigvecs.shape[1]), np.float32)
+                       if has_ev else None)
+            eigvals = (np.zeros((NG, slot, g0.eigvals.shape[1]), np.float32)
+                       if has_ev else None)
+            for i, g in enumerate(graphs):
+                n, e = g.num_nodes, g.num_edges
+                if n > slot or e > e_slot:
+                    raise ValueError(f"graph {i} ({n} nodes, {e} edges) "
+                                     f"exceeds slot {slot} / e_slot {e_slot}")
+                nodes[i, :n] = g.x
+                n_node[i] = n
+                order = np.argsort(g.edge_index[1], kind="stable")
+                src[i, :e] = g.edge_index[0][order]
+                dst[i, :e] = g.edge_index[1][order]
+                ok[i, :e] = True
+                if has_ea:
+                    edge_feat[i, :e] = g.edge_attr[order]
+                if has_y:
+                    y[i] = np.asarray(g.y, np.float32).reshape(-1)
+                if has_ny:
+                    node_y[i, :n] = g.node_y
+                if has_cl and g.cluster is not None:
+                    cluster[i, :n] = g.cluster
+                if has_ev:
+                    eigvecs[i, :n] = np.nan_to_num(g.eigvecs)
+                    eigvals[i, :n] = np.nan_to_num(g.eigvals)
+            ds = DeviceDataset(nodes=nodes, n_node=n_node, edges_src=src,
+                               edges_dst=dst, edge_ok=ok, edge_feat=edge_feat,
+                               y=y, node_y=node_y, cluster=cluster,
+                               eigvecs=eigvecs, eigvals=eigvals, slot=slot,
+                               e_slot=e_slot)
+            if device is None:
+                return ds
+            ds = ds.to(device)
+            # Per-graph dense adjacency cache: built once on the device (no
+            # upload of the big array), gathered by every assemble instead of
+            # a scatter a step.
+            if NG * slot * slot * 2 <= ADJ_CACHE_BUDGET_BYTES:
+                ds = ds.replace(adj=build_adj_cache(ds))
             return ds
-        ds = ds.to(device)
-        # Per-graph dense adjacency cache: built once on the device (no
-        # upload of the big array), gathered by every assemble instead of
-        # a scatter a step.
-        if NG * slot * slot * 2 <= ADJ_CACHE_BUDGET_BYTES:
-            ds = ds.replace(adj=build_adj_cache(ds))
-        return ds
 
 
 def build_adj_cache(ds: DeviceDataset) -> torch.Tensor:
@@ -310,12 +312,19 @@ class RowSteps:
 
     A graph binds its tensors by address: ``ds`` and ``rows`` must not be
     rebuilt or ``replace``d while this object is in use.
+
+    Each row is a span named ``name`` (the caller's: ``train_step``,
+    ``eval_step``, ``cluster_step``): a replay, or a form's first row with
+    its ``capture`` span inside.  No span goes inside the step itself,
+    whose host code a replay does not run.
     """
 
     def __init__(self, body: Callable[[GraphBatch], tuple] | dict,
                  ds: DeviceDataset, rows: torch.Tensor,
                  counter: torch.Tensor, capture: bool, pool=None,
-                 generators=(), form: Callable[[], Any] | None = None):
+                 generators=(), form: Callable[[], Any] | None = None, *,
+                 name: str):
+        self.name = name
         self.bodies = body if isinstance(body, dict) else {None: body}
         self.form = form or (lambda: None)
         self.ds = ds
@@ -358,9 +367,10 @@ class RowSteps:
             self._step(form)
         elif form not in self.graphs:
             step = functools.partial(self._step, form)
-            run_on_side_stream(step)
-            self.graphs[form] = CapturedStep(step, self.pool,
-                                             self.generators)
+            with span("capture"):
+                run_on_side_stream(step)
+                self.graphs[form] = CapturedStep(step, self.pool,
+                                                 self.generators)
         else:
             self.graphs[form]()
 
@@ -372,7 +382,8 @@ class RowSteps:
         nb = self.load(perm)
         for _ in range(nb):
             t0 = time.perf_counter()
-            self.step()
+            with span(self.name):
+                self.step()
             if step_seconds is not None:
                 if self.rows.is_cuda:
                     torch.cuda.synchronize(self.rows.device)
@@ -416,5 +427,6 @@ def make_epoch_fn(model: torch.nn.Module, opt, ds: DeviceDataset,
     forms = {applies: functools.partial(train_step, applies=applies)
              for applies in (False, True)}
     return (RowSteps(forms, ds, rows, counter, capture, pool, gens,
-                     form=opt.next_applies),
-            RowSteps(eval_step, ds, rows, counter, capture, pool, gens))
+                     form=opt.next_applies, name="train_step"),
+            RowSteps(eval_step, ds, rows, counter, capture, pool, gens,
+                     name="eval_step"))

@@ -38,8 +38,8 @@ from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
 from graph_hscn_tpu_torch.train.loss import criterion
 from graph_hscn_tpu_torch.train.metrics import METRICS
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
-from graph_hscn_tpu_torch.utils.profiling import (check_nans, trace,
-                                                  training_state)
+from graph_hscn_tpu_torch.utils.profiling import (check_nans, set_epoch,
+                                                  span, training_state)
 
 
 def is_eval_epoch(epoch: int, max_epochs: int, eval_period: int) -> bool:
@@ -119,6 +119,10 @@ def run_fit_loop(training_cfg, logger, train_epoch, evaluate,
     evaluate(split)    -> (loss, perf) for split in ("val", "test")
     get_state()        -> the snapshot a ``checkpointer`` saves.
     Returns (best_val_loss, history, stopped_early, epochs_run).
+
+    The spans (utils/profiling.py) that start in a train epoch, and in the
+    evals after it, are tagged with that epoch; those outside the loop
+    with None.
     """
     try:
         out = _fit_loop_body(training_cfg, logger, train_epoch, evaluate,
@@ -133,6 +137,8 @@ def run_fit_loop(training_cfg, logger, train_epoch, evaluate,
             except Exception:
                 pass
         raise
+    finally:
+        set_epoch(None)
     if checkpointer is not None:
         checkpointer.wait()   # land the last async write
     return out
@@ -146,6 +152,7 @@ def _fit_loop_body(training_cfg, logger, train_epoch, evaluate,
     stopped = False
     epochs_run = start_epoch
     for epoch in range(start_epoch, training_cfg.epochs):
+        set_epoch(epoch)
         t0 = time.time()
         train_loss, train_perf, num_edges = train_epoch(epoch)
         logger.log_train(epoch, train_loss, train_perf, t0,
@@ -257,7 +264,8 @@ def fit(model: torch.nn.Module,
     eval_sets = {"val": val_batches, "test": test_batches}
 
     def move(batch: GraphBatch) -> GraphBatch:
-        return batch.to(device)
+        with span("data.to_device"):
+            return batch.to(device)
 
     best, history, stopped, epochs_run = run_fit_loop(
         training_cfg, logger,
@@ -296,10 +304,13 @@ class _StepRunner:
     """Runs an epoch's steps, counts them, times the train steps when asked
     (each then ends in a device sync; the time covers making the step's
     batch on the device and the step), and turns the epoch's outputs into
-    (mean loss, metric) with one readback.  With ``runtime.debug_nans``
-    it checks each step's outputs (:meth:`run`) or each epoch's
-    (:meth:`run_rows`), and after a train step or epoch the weights and
-    optimizer state (:meth:`watch`)."""
+    (mean loss, metric) with one readback.  Each host-loop step is a
+    ``train_step`` or ``eval_step`` span (making the batch on the device
+    and issuing the step); the readback and the host metric are the
+    ``epoch_end.readback`` and ``epoch_end.metric`` spans.  With
+    ``runtime.debug_nans`` it checks each step's outputs (:meth:`run`) or
+    each epoch's (:meth:`run_rows`), and after a train step or epoch the
+    weights and optimizer state (:meth:`watch`)."""
 
     def __init__(self, metric_fn, device: torch.device, step_timing: bool):
         self.metric_fn = metric_fn
@@ -325,9 +336,11 @@ class _StepRunner:
     def run(self, items: Iterable, prepare: Callable, step, kind: str):
         """``prepare(item)`` makes the step's batch on the device."""
         outs = []
+        name = f"{kind}_step"
         for item in items:
             t0 = time.perf_counter()
-            outs.append(step(prepare(item)))
+            with span(name):
+                outs.append(step(prepare(item)))
             self.check(outs[-1], kind, "step")
             self.counts[kind] += 1
             if self.step_timing and kind == "train":
@@ -351,12 +364,17 @@ class _StepRunner:
     def collect(self, losses, scores, trues, masks):
         """(mean loss, metric) of an epoch's outputs: losses [R], scores
         and trues [..., C], masks [...] on the device (the JAX
-        ``_collect``)."""
-        y_pred = scores.reshape(-1, scores.shape[-1]).cpu().numpy()
-        y_true = trues.reshape(-1, trues.shape[-1]).cpu().numpy()
-        m = masks.reshape(-1).cpu().numpy()
-        loss = float(np.mean(losses.cpu().numpy()))
-        return loss, self.metric_fn(y_true[m], y_pred[m])
+        ``_collect``).  On the card the readback waits for the epoch's
+        last step."""
+        with span("epoch_end.readback", sum(
+                t.nbytes for t in (losses, scores, trues, masks))):
+            y_pred = scores.reshape(-1, scores.shape[-1]).cpu().numpy()
+            y_true = trues.reshape(-1, trues.shape[-1]).cpu().numpy()
+            m = masks.reshape(-1).cpu().numpy()
+            per_step = losses.cpu().numpy()
+        with span("epoch_end.metric"):
+            return (float(np.mean(per_step)),
+                    self.metric_fn(y_true[m], y_pred[m]))
 
     def result(self, model, best, history, stopped, epochs_run) -> FitResult:
         return FitResult(model=model, best_val_loss=best, history=history,
@@ -371,8 +389,7 @@ def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
                batch_size: int, optim_cfg, training_cfg, logger,
                device: torch.device | str, node_level: bool = False,
                compat_sigmoid_score: bool = False, slot: int | None = None,
-               step_timing: bool = False, checkpointer=None,
-               profile_dir: str | None = None) -> FitResult:
+               step_timing: bool = False, checkpointer=None) -> FitResult:
     """Device-resident training (the JAX ``fit_device``): the whole dataset
     lives on ``device``, batches are assembled there from index rows
     (train/device_data.py), and an epoch's host traffic is its [NB, B]
@@ -393,7 +410,7 @@ def fit_device(model: torch.nn.Module, graphs_train, graphs_val, graphs_test,
         model, ds, split_ids, batch_size, optim_cfg, training_cfg, logger,
         device, node_level=node_level,
         compat_sigmoid_score=compat_sigmoid_score, step_timing=step_timing,
-        checkpointer=checkpointer, profile_dir=profile_dir,
+        checkpointer=checkpointer,
         train_edges=sum(g.num_edges for g in splits["train"]))
 
 
@@ -404,7 +421,7 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
                           compat_sigmoid_score: bool = False,
                           step_timing: bool = False,
                           capture: bool | None = None,
-                          checkpointer=None, profile_dir: str | None = None,
+                          checkpointer=None,
                           train_edges: int | None = None) -> FitResult:
     """:func:`fit_device` on a prebuilt DeviceDataset.
 
@@ -420,10 +437,6 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     as in :func:`fit`; the restore comes before the first row, so before
     the steps are captured.  ``train_edges``: the train split's edges, the
     epoch line's edge count.
-
-    ``profile_dir`` (``runtime.profile_dir``): the epochs run inside
-    :func:`utils.profiling.trace`, as JAX's inside its trace: the first
-    row of each step eager, its capture and the replays all traced.
     """
     device = torch.device(device)
     capture = resolve_capture(capture, device)
@@ -451,17 +464,16 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
         node_level=node_level, compat_sigmoid_score=compat_sigmoid_score,
         generator=dropout_gen, capture=capture)
 
-    with trace(profile_dir, device):
-        best, history, stopped, epochs_run = run_fit_loop(
-            training_cfg, logger,
-            lambda epoch: (*runner.run_rows(
-                train_epoch,
-                split_perm("train", training_cfg.seed + epoch, True),
-                "train"), train_edges),
-            lambda split: runner.run_rows(eval_epoch, eval_perms[split],
-                                          "eval"),
-            checkpointer, lambda: snapshot_state(model, opt, dropout_gen),
-            start_epoch, best_loss)
+    best, history, stopped, epochs_run = run_fit_loop(
+        training_cfg, logger,
+        lambda epoch: (*runner.run_rows(
+            train_epoch,
+            split_perm("train", training_cfg.seed + epoch, True),
+            "train"), train_edges),
+        lambda split: runner.run_rows(eval_epoch, eval_perms[split],
+                                      "eval"),
+        checkpointer, lambda: snapshot_state(model, opt, dropout_gen),
+        start_epoch, best_loss)
     return runner.result(model, best, history, stopped, epochs_run)
 
 

@@ -1,14 +1,18 @@
-"""Tracing, throughput and NaN checks of a run: the counterpart of
+"""Tracing, spans and NaN checks of a run: the counterpart of
 ``graph_hscn_tpu/utils/profiling.py``.
 
+- :class:`span`: the port's own instrumentation at its layer boundaries
+  (data and plan, the train loop and captured epoch, set-up and
+  clustering, the mesh collectives).  Always on, as in-memory totals a
+  (name, fit epoch) pair (:func:`span_totals`); while a
+  ``torch.profiler`` records, also a ``record_function`` range, so that
+  the spans lie on the profiler's clock beside the device operations.
 - :func:`trace`: a ``torch.profiler`` trace of a block (CPU activities,
   and on the card CUDA activities through CUPTI, the kernels inside a
   replayed CUDA graph among them), written on exit into the directory as a
   Chrome trace ``<host>_<pid>.<ns>.pt.trace.json`` (TensorBoard's PyTorch
   profiler plugin, Perfetto or ``chrome://tracing`` open it); a no-op for
   None.  The JAX ``trace`` writes ``jax.profiler``'s.
-- :class:`StepTimer`: wall clock and throughput over a window, edges/s,
-  nodes/s, steps/s; :meth:`StepTimer.report` synchronises the card first.
 - :func:`nan_guard` and :func:`check_nans`: ``runtime.debug_nans``.  JAX's
   ``jax_debug_nans`` checks the outputs of every program it runs and
   raises ``FloatingPointError`` on a NaN; the fit routes call
@@ -16,10 +20,11 @@
   step's loss, scores and targets, the weights and optimizer state it
   leaves), which does nothing while the guard is off.
 
-Left out: ``cost_analysis`` (XLA's cost model of a jitted function: the
-step's FLOP count belongs to the benchmark, ROADMAP.md);
-``enable_compile_cache`` (XLA's compiled programs: the port's counterpart
-is the kernel build cache of ``ops/cuda/build.py``);
+Left out: ``StepTimer`` (a throughput meter over a window: the spans and
+the fit's ``step_timing`` cover it); ``cost_analysis`` (XLA's cost model
+of a jitted function: the step's FLOP count belongs to the benchmark,
+ROADMAP.md); ``enable_compile_cache`` (XLA's compiled programs: the
+port's counterpart is the kernel build cache of ``ops/cuda/build.py``);
 ``maybe_init_distributed`` (``parallel/mesh.py:launcher_env`` and
 ``process_group``).
 """
@@ -27,12 +32,23 @@ is the kernel build cache of ``ops/cuda/build.py``);
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Iterable, Iterator
 
 import torch
 
 _debug_nans = False
+
+# The span registry: (name, epoch) -> [calls, total_ns, self_ns, bytes].
+_totals: dict[tuple[str, int | None], list[int]] = {}
+_totals_lock = threading.Lock()
+# Each thread's open spans, innermost last.
+_open = threading.local()
+# The fit epoch that run_fit_loop is in, None outside a fit.
+_epoch: int | None = None
+_clock = time.perf_counter_ns
+_profiling = torch.autograd._profiler_enabled
 
 
 def nan_guard(enable: bool = True) -> None:
@@ -110,37 +126,87 @@ def trace(profile_dir: str | None, device=None):
         yield
 
 
-class StepTimer:
-    """Throughput meter: edges/s, nodes/s, steps/s over a window.  The
-    card runs behind the host, so :meth:`report` synchronises the current
-    CUDA device (if CUDA is in use) before it reads the clock."""
+def set_epoch(epoch: int | None) -> None:
+    """Tag the spans that start from now on with fit epoch ``epoch`` (None:
+    outside a fit).  ``train.loop.run_fit_loop`` sets it at the start of
+    each train epoch, the evals after that epoch keep it, and the loop
+    sets None again when it leaves."""
+    global _epoch
+    _epoch = epoch
 
-    def __init__(self):
-        self.reset()
 
-    def reset(self):
-        self._sync()
-        self.t0 = time.perf_counter()
-        self.steps = 0
-        self.edges = 0
-        self.nodes = 0
+class span:
+    """A span of the port's work at a layer boundary: ``with
+    span("data.pack"): ...``.
 
-    def update(self, num_edges: int, num_nodes: int = 0):
-        self.steps += 1
-        self.edges += num_edges
-        self.nodes += num_nodes
+    Each use adds into the registry, under (``name``, the fit epoch it
+    started in), its calls, its wall nanoseconds (``total_ns``), the part
+    of them that no child span on the same thread covers (``self_ns``) and
+    ``nbytes`` (the bytes the work moved, where a metric reads them).
+    The registry is shared by every thread (the prefetch loader packs on
+    a worker thread); the nesting is each thread's own.
 
-    @staticmethod
-    def _sync():
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+    While a ``torch.profiler`` records, the span is also a
+    ``record_function`` range of the same name; with no profiler none is
+    entered, since entering one costs about ten microseconds even
+    unprofiled.  The bytes stay in the registry: a range's args do not
+    reach the profiler's Chrome trace.
 
-    def report(self) -> dict:
-        self._sync()
-        dt = max(time.perf_counter() - self.t0, 1e-9)
-        return {
-            "steps_per_sec": self.steps / dt,
-            "edges_per_sec": self.edges / dt,
-            "nodes_per_sec": self.nodes / dt,
-            "wall_sec": dt,
-        }
+    No span goes inside code that a CUDA-graph capture runs: such host
+    code runs once, at capture, and never at replay."""
+
+    __slots__ = ("name", "nbytes", "_t0", "_child_ns", "_epoch", "_range")
+
+    def __init__(self, name: str, nbytes: int = 0):
+        self.name = name
+        self.nbytes = nbytes
+
+    def __enter__(self) -> "span":
+        self._range = None
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        stack.append(self)
+        self._epoch = _epoch
+        self._child_ns = 0
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dt = _clock() - self._t0
+        stack = _open.stack
+        if stack[-1] is self:
+            stack.pop()
+        else:       # closed out of order (a halo waited for late)
+            stack.remove(self)
+        if stack:
+            stack[-1]._child_ns += dt
+        key = (self.name, self._epoch)
+        with _totals_lock:
+            row = _totals.get(key)
+            if row is None:
+                row = _totals[key] = [0, 0, 0, 0]
+            row[0] += 1
+            row[1] += dt
+            row[2] += dt - self._child_ns
+            row[3] += self.nbytes
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+
+
+def span_totals() -> dict[tuple[str, int | None], dict[str, int]]:
+    """A snapshot of the registry: {(name, epoch): {"calls", "total_ns",
+    "self_ns", "bytes"}}, ``epoch`` the fit epoch the spans started in
+    (None outside a fit: set-up, clustering)."""
+    with _totals_lock:
+        return {k: dict(zip(("calls", "total_ns", "self_ns", "bytes"), v))
+                for k, v in _totals.items()}
+
+
+def reset_spans() -> None:
+    """Empty the registry."""
+    with _totals_lock:
+        _totals.clear()

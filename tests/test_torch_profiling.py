@@ -12,10 +12,10 @@ HSCN walkthrough) against the JAX package's, on the CPU at small sizes:
   ``jax.debug_nans(False)``, which its own tracing enters, no later call);
   on two gloo ranks both raise together, and ``fit_dp`` with a rank
   on the masked placeholder trains clean data as without the guard;
-- ``runtime.profile_dir``: a trace of the device route's fit, a warning
-  on the host loop;
+- ``runtime.profile_dir``: a trace of the device route's fit and of the
+  host loop's, the port's spans among its ranges;
 - wandb (a stand-in module): the same project, keys and values as JAX's;
-- ``StepTimer``'s report, and the walkthrough on the CPU.
+- the walkthrough on the CPU.
 
 Each package's NaN guard is process-wide: the ``guards`` fixture turns
 both off again.
@@ -38,14 +38,12 @@ from graph_hscn_tpu.config.config import parse_config as jax_parse
 from graph_hscn_tpu.data import pipeline as jax_pipeline
 from graph_hscn_tpu.runner import run_experiment as jax_run
 from graph_hscn_tpu.utils import logger as jax_logger
-from graph_hscn_tpu.utils.profiling import StepTimer as JaxStepTimer
 from graph_hscn_tpu_torch.config.config import parse_config
 from graph_hscn_tpu_torch.data import pipeline
 from graph_hscn_tpu_torch.ops import spmm
 from graph_hscn_tpu_torch.runner import run_experiment
 from graph_hscn_tpu_torch.utils import logger as port_logger
 from graph_hscn_tpu_torch.utils import profiling
-from graph_hscn_tpu_torch.utils.profiling import StepTimer
 from sharded_jax import mpnn_init_state
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -293,8 +291,8 @@ def test_edge_counts_follow_jax(route, guards, monkeypatch):
 def test_profile_dir_traces_the_device_route(tmp_path, guards, caplog):
     """A 2-epoch device-route fit with ``runtime.profile_dir`` writes one
     Chrome trace that parses and holds the step's operations, and trains
-    as without it; the host loop warns once, names its route, and trains
-    as without the key."""
+    as without it; so does the host loop, whose trace holds its
+    ``train_step`` and ``data.csr_plan`` spans, with no warning."""
     raw = _raw("GCN/peptides_func_GCN.yaml", 16, epochs=2)
     plain = _port(raw, "clean", nans=False)
     raw.setdefault("runtime", {})["profile_dir"] = str(tmp_path / "trace")
@@ -307,16 +305,20 @@ def test_profile_dir_traces_the_device_route(tmp_path, guards, caplog):
     assert "aten::bmm" in names or "aten::matmul" in names
     assert "Optimizer.step#AdamW.step" in names
 
+    # The host loop, with the CSR plan packed (the pallas backend: on the
+    # CPU its plain twin aggregates).
     host = _raw("GCN/voc_superpixels_GCN_sparse.yaml", 16, epochs=2,
-                **{"mp.num_layers": 2})
+                **{"mp.num_layers": 2, "runtime.spmm_backend": "pallas"})
     plain = _port(host, "clean", nans=False)
     host.setdefault("runtime", {})["profile_dir"] = str(tmp_path / "host")
-    warned = _port(host, "clean", nans=False, log_file=tmp_path / "h.log")
-    assert _losses(warned) == _losses(plain)
-    text = (tmp_path / "h.log").read_text()
-    assert text.count("WARNING") == 1
-    assert "profile_dir is not traced on the host-loop route" in text
-    assert not (tmp_path / "host").exists()
+    traced = _port(host, "clean", nans=False, log_file=tmp_path / "h.log")
+    assert _losses(traced) == _losses(plain)
+    assert "WARNING" not in (tmp_path / "h.log").read_text()
+    files = list((tmp_path / "host").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.loads(files[0].read_text())[
+        "traceEvents"]}
+    assert {"train_step", "data.csr_plan"} <= names
 
 
 class _FakeWandb(types.SimpleNamespace):
@@ -356,22 +358,6 @@ def test_wandb_logs_as_jax(guards, monkeypatch):
             else:
                 np.testing.assert_allclose(got[key], value, rtol=1e-5,
                                            err_msg=key)
-
-
-def test_step_timer_reports_as_jax():
-    """The same updates give the same report keys and counts."""
-    timers = StepTimer(), JaxStepTimer()
-    for t in timers:
-        t.update(100, 10)
-        t.update(50)
-    reports = [t.report() for t in timers]
-    assert list(reports[0]) == list(reports[1])
-    for t in timers:
-        assert (t.steps, t.edges, t.nodes) == (2, 150, 10)
-    assert reports[0]["edges_per_sec"] == pytest.approx(
-        150 / reports[0]["wall_sec"])
-    timers[0].reset()
-    assert timers[0].steps == 0
 
 
 def test_walkthrough_runs_on_the_cpu(guards):

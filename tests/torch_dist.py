@@ -1,7 +1,8 @@
 """Run a function of this module on D gloo ranks, one process each, for
 the port's mesh tests (tests/test_torch_edge_partition.py,
 tests/test_torch_sharded_*.py, tests/test_torch_data_parallel.py,
-tests/test_torch_hybrid.py and tests/test_torch_profiling.py); its
+tests/test_torch_hybrid.py, tests/test_torch_profiling.py and
+tests/test_torch_tracing.py); its
 :func:`poisoned` data also serves chip_smoke.py's ``debug_nans`` phase.
 
     outs = spawn("sharded_model", world=4, args={...}, tmp=tmp_path)
@@ -536,6 +537,31 @@ def nan_run(rank: int, world: int, runs: list[dict]) -> list[dict]:
         out.append({"raised": None, "losses": [
             (h["train_loss"], h.get("validation_loss"), h.get("test_loss"))
             for h in result.history]})
+    return out
+
+
+def span_run(rank: int, world: int, runs: list[dict]) -> list[dict]:
+    """``run_experiment`` on this group of each of ``runs`` ({"raw",
+    "data_parallel"}), the span registry emptied before each: each
+    {"spans": ``span_totals()`` as a list of (name, epoch, calls),
+    "open": the spans left open on this thread, "halo": the train split's
+    halo width (an edge-partitioned fit's, else None), "steps": the train
+    steps}."""
+    from graph_hscn_tpu_torch.config.config import parse_config
+    from graph_hscn_tpu_torch.runner import run_experiment
+    from graph_hscn_tpu_torch.utils import profiling
+    out = []
+    for run in runs:
+        profiling.reset_spans()
+        result = run_experiment(parse_config(run["raw"]), device="cpu",
+                                data_parallel=run.get("data_parallel",
+                                                      False))
+        train = result.partition.get("train", {})
+        out.append({
+            "spans": [(n, e, v["calls"]) for (n, e), v in
+                      profiling.span_totals().items()],
+            "open": len(getattr(profiling._open, "stack", [])),
+            "halo": train.get("halo_width"), "steps": result.num_train_steps})
     return out
 
 
