@@ -396,7 +396,8 @@ def make_epoch_fn(model: torch.nn.Module, opt, ds: DeviceDataset,
                   node_level: bool = False,
                   compat_sigmoid_score: bool = False,
                   generator: torch.Generator | None = None,
-                  capture: bool | None = None) -> tuple:
+                  capture: bool | None = None,
+                  stat: Callable | None = None) -> tuple:
     """The train and eval epochs over ``ds`` (the JAX ``make_epoch_fn``).
 
     Returns (train_epoch, eval_epoch), two :class:`RowSteps`:
@@ -407,6 +408,9 @@ def make_epoch_fn(model: torch.nn.Module, opt, ds: DeviceDataset,
         applies as ``opt.next_applies()`` counts it on the host, one form
         captured for each;
       eval_epoch(perm) -> the same outputs of eval steps.
+    With ``stat`` (a ``metrics.CountMetric``'s ``step``) each step returns
+    (loss, counts) instead, and the epochs (losses [NB], counts [NB, K]):
+    the output buffers hold count rows, not scores and targets.
     NB is at most ``max_rows``.  Both share one static permutation buffer
     and one counter, and, captured (``capture``: by default on a CUDA
     device), one memory pool: the train step is captured after the fit's
@@ -421,7 +425,8 @@ def make_epoch_fn(model: torch.nn.Module, opt, ds: DeviceDataset,
     capture = resolve_capture(capture, dev)
     train_step, eval_step = make_train_step(
         model, opt, loss_fn, node_level=node_level,
-        compat_sigmoid_score=compat_sigmoid_score, generator=generator)
+        compat_sigmoid_score=compat_sigmoid_score, generator=generator,
+        stat=stat)
     rows, counter, pool = row_buffers(max_rows, batch_size, dev, capture)
     gens = () if generator is None else (generator,)
     forms = {applies: functools.partial(train_step, applies=applies)

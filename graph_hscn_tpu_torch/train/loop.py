@@ -6,7 +6,9 @@ the host path ``fit`` and the device-resident path ``fit_device``.
   optimizer step; an eval step runs the forward under ``torch.no_grad()``;
 - losses and predictions stay on the device through the epoch and come to
   the host once at its end for the metric (the reference syncs every batch
-  via ``loss.item()``, train.py:85);
+  via ``loss.item()``, train.py:85); a metric of integer counts
+  (``metrics.COUNT_METRICS``: macro-F1) is reduced on the device instead,
+  each step computing its counts and the epoch end reading back their sum;
 - eval cadence, early stopping (patience counted in eval periods, quirk #13
   preserved intentionally: it matches the reference's semantics), min_delta
   on val loss — all identical to reference train.py:164-214;
@@ -36,7 +38,8 @@ from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
                                                     make_epoch_fn,
                                                     resolve_capture)
 from graph_hscn_tpu_torch.train.loss import criterion
-from graph_hscn_tpu_torch.train.metrics import METRICS
+from graph_hscn_tpu_torch.train.metrics import (COUNT_METRICS, METRICS,
+                                                sum_step_counts)
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
 from graph_hscn_tpu_torch.utils.profiling import (check_nans, set_epoch,
                                                   span, training_state)
@@ -196,11 +199,15 @@ def _fit_loop_body(training_cfg, logger, train_epoch, evaluate,
 def make_train_step(model: torch.nn.Module, opt, loss_fn: str,
                     node_level: bool = False,
                     compat_sigmoid_score: bool = False,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    stat: Callable | None = None):
     """The train and eval steps (the counterpart of the JAX
     ``make_train_step``).  Both take a batch on the model's device and
     return (loss, score, true, mask), the loss being the one before the
-    update; dropout draws its bits from ``generator``."""
+    update; dropout draws its bits from ``generator``.  With ``stat`` (a
+    ``metrics.CountMetric``'s ``step``) they return (loss,
+    stat(score, true, mask)) instead: the step's counts, and no scores or
+    targets."""
 
     def loss_and_score(batch: GraphBatch, gen):
         pred = model(batch, generator=gen)
@@ -209,6 +216,11 @@ def make_train_step(model: torch.nn.Module, opt, loss_fn: str,
         loss, score = criterion(loss_fn, pred, true, mask,
                                 compat_sigmoid_score=compat_sigmoid_score)
         return loss, score, true, mask
+
+    def outputs(loss, score, true, mask) -> tuple:
+        if stat is None:
+            return loss, score, true, mask
+        return loss, stat(score, true, mask)
 
     def train_step(batch: GraphBatch, applies: bool | None = None):
         """``applies``: whether the optimizer updates the weights or only
@@ -219,12 +231,12 @@ def make_train_step(model: torch.nn.Module, opt, loss_fn: str,
         opt.zero_grad()
         loss.backward()
         opt.step(applies)
-        return loss.detach(), score.detach(), true, mask
+        return outputs(loss.detach(), score.detach(), true, mask)
 
     @torch.no_grad()
     def eval_step(batch: GraphBatch):
         model.eval()
-        return loss_and_score(batch, None)
+        return outputs(*loss_and_score(batch, None))
 
     return train_step, eval_step
 
@@ -260,7 +272,8 @@ def fit(model: torch.nn.Module,
     runner.watch(model, opt)
     train_step, eval_step = make_train_step(
         model, opt, training_cfg.loss_fn, node_level=node_level,
-        compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen)
+        compat_sigmoid_score=compat_sigmoid_score, generator=dropout_gen,
+        stat=runner.stat)
     eval_sets = {"val": val_batches, "test": test_batches}
 
     def move(batch: GraphBatch) -> GraphBatch:
@@ -296,7 +309,7 @@ def _setup(model, optim_cfg, training_cfg, device: torch.device,
                           capturable=capturable)
     dropout_gen = torch.Generator(device=device)
     dropout_gen.manual_seed(training_cfg.seed)
-    runner = _StepRunner(METRICS[training_cfg.metric], device, step_timing)
+    runner = _StepRunner(training_cfg.metric, device, step_timing)
     return opt, dropout_gen, runner
 
 
@@ -310,10 +323,19 @@ class _StepRunner:
     ``epoch_end.readback`` and ``epoch_end.metric`` spans.  With
     ``runtime.debug_nans`` it checks each step's outputs (:meth:`run`) or
     each epoch's (:meth:`run_rows`), and after a train step or epoch the
-    weights and optimizer state (:meth:`watch`)."""
+    weights and optimizer state (:meth:`watch`).
 
-    def __init__(self, metric_fn, device: torch.device, step_timing: bool):
-        self.metric_fn = metric_fn
+    ``metric``: the name of the fit's metric.  One of
+    ``metrics.COUNT_METRICS`` is reduced on the device (unless not
+    ``counted``): ``stat`` is the statistic the steps are built with, and
+    their outputs are (loss, counts); for any other ``stat`` is None and
+    the outputs are (loss, scores, targets, mask)."""
+
+    def __init__(self, metric: str, device: torch.device, step_timing: bool,
+                 counted: bool = True):
+        reduced = COUNT_METRICS.get(metric) if counted else None
+        self.stat = reduced.step if reduced else None
+        self.metric_fn = reduced.finish if reduced else METRICS[metric]
         self.device = device
         self.step_timing = step_timing
         self.counts = {"train": 0, "eval": 0}
@@ -326,11 +348,13 @@ class _StepRunner:
         self.state = lambda: training_state(model, opt)
 
     def check(self, outs, kind: str, where: str) -> None:
-        """``runtime.debug_nans``: the outputs (loss, scores, targets,
-        mask) of a step or an epoch, and after training what it leaves."""
-        check_nans(f"{kind} {where}", [("loss", outs[0]),
-                                         ("scores", outs[1]),
-                                         ("targets", outs[2])],
+        """``runtime.debug_nans``: the outputs (loss, and scores and
+        targets where the step returns them) of a step or an epoch, and
+        after training what it leaves."""
+        named = [("loss", outs[0])]
+        if self.stat is None:
+            named += [("scores", outs[1]), ("targets", outs[2])]
+        check_nans(f"{kind} {where}", named,
                    self.state() if kind == "train" else ())
 
     def run(self, items: Iterable, prepare: Callable, step, kind: str):
@@ -347,9 +371,18 @@ class _StepRunner:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.step_seconds.append(time.perf_counter() - t0)
+        return self.collect(*self.stacked(outs))
+
+    def stacked(self, outs: list) -> tuple:
+        """A pass's step outputs as :meth:`collect` takes them: the losses
+        [R] and the counts [R, K], or the losses and the scores, trues and
+        masks concatenated over the steps."""
+        if self.stat is not None:
+            losses, counts = zip(*outs)
+            return torch.stack(losses), torch.stack(counts)
         losses, scores, trues, masks = zip(*outs)
-        return self.collect(torch.stack(losses), torch.cat(scores),
-                            torch.cat(trues), torch.cat(masks))
+        return (torch.stack(losses), torch.cat(scores), torch.cat(trues),
+                torch.cat(masks))
 
     def run_rows(self, epoch_fn, perm: np.ndarray, kind: str):
         """An epoch of the device route: ``epoch_fn`` (a
@@ -361,11 +394,20 @@ class _StepRunner:
         self.replays[kind] = epoch_fn.replays
         return self.collect(*outs)
 
-    def collect(self, losses, scores, trues, masks):
-        """(mean loss, metric) of an epoch's outputs: losses [R], scores
-        and trues [..., C], masks [...] on the device (the JAX
-        ``_collect``).  On the card the readback waits for the epoch's
-        last step."""
+    def collect(self, losses, *outs):
+        """(mean loss, metric) of an epoch's outputs on the device (the
+        JAX ``_collect``): losses [R] and either the steps' counts [R, K],
+        summed there and read back as one [K] vector, or scores and trues
+        [..., C] and masks [...], read back whole.  On the card the
+        readback waits for the epoch's last step."""
+        if self.stat is not None:
+            total = sum_step_counts(*outs)
+            with span("epoch_end.readback", losses.nbytes + total.nbytes):
+                counts = total.cpu().numpy()
+                per_step = losses.cpu().numpy()
+            with span("epoch_end.metric"):
+                return float(np.mean(per_step)), self.metric_fn(counts)
+        scores, trues, masks = outs
         with span("epoch_end.readback", sum(
                 t.nbytes for t in (losses, scores, trues, masks))):
             y_pred = scores.reshape(-1, scores.shape[-1]).cpu().numpy()
@@ -462,7 +504,7 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     train_epoch, eval_epoch = make_epoch_fn(
         model, opt, ds, batch_size, max_rows, training_cfg.loss_fn,
         node_level=node_level, compat_sigmoid_score=compat_sigmoid_score,
-        generator=dropout_gen, capture=capture)
+        generator=dropout_gen, capture=capture, stat=runner.stat)
 
     best, history, stopped, epochs_run = run_fit_loop(
         training_cfg, logger,
@@ -489,28 +531,29 @@ def evaluate_checkpoint(model: torch.nn.Module, batches_by_split: dict,
     snapshot's metadata).  With ``predictions_sink`` (a dict) it also
     collects each split's scores and targets over the real rows, as numpy:
     the export behind ``main.py --eval --predict``.  The model alone is
-    restored: eval needs no optimizer state."""
+    restored: eval needs no optimizer state.  A metric of counts is
+    reduced on the device as in a fit, unless the scores are exported."""
     device = torch.device(device)
     if not checkpointer.has(which):
         raise FileNotFoundError(
             f"no '{which}' snapshot in {checkpointer.dir}")
     state, meta = checkpointer.restore(which, device)
     model.load_state_dict(state["model"])
+    runner = _StepRunner(training_cfg.metric, device, False,
+                         counted=predictions_sink is None)
     _, eval_step = make_train_step(
         model, None, training_cfg.loss_fn, node_level=node_level,
-        compat_sigmoid_score=compat_sigmoid_score)
-    runner = _StepRunner(METRICS[training_cfg.metric], device, False)
+        compat_sigmoid_score=compat_sigmoid_score, stat=runner.stat)
     results = {}
     for split, batches in batches_by_split.items():
         outs = [eval_step(b.to(device)) for b in batches]
         for out in outs:
             runner.check(out, "eval", "step")
-        losses, scores, trues, masks = zip(*outs)
-        scores, trues, masks = (torch.cat(t) for t in (scores, trues, masks))
-        loss, perf = runner.collect(torch.stack(losses), scores, trues,
-                                    masks)
+        stacked = runner.stacked(outs)
+        loss, perf = runner.collect(*stacked)
         results[split] = {"loss": loss, training_cfg.metric: perf}
         if predictions_sink is not None:
+            _, scores, trues, masks = stacked
             m = masks.reshape(-1).cpu().numpy()
             predictions_sink[split] = {
                 name: t.reshape(-1, t.shape[-1]).cpu().numpy()[m]

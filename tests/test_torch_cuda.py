@@ -1134,6 +1134,79 @@ def test_capture_and_replays_do_not_sync_with_the_host():
         assert epoch_fn.replays == 2 * nb - 1
 
 
+def test_captured_f1_epochs_reduce_counts_on_the_card(monkeypatch):
+    """A node-level F1 fit on the card (24 VOC-like graphs, the GCN at 2
+    layers of 16, dropout 0.1): its train and eval steps return (loss,
+    counts) and are captured and replayed under
+    torch.cuda.set_sync_debug_mode("error"), no step syncing with the host;
+    the fit's history, captured and eager, equals the same fit's with the
+    host F1 (scores and targets read back) bit for bit; and the passes are
+    counted, one a train epoch and two an eval epoch."""
+    need_card()
+    import copy
+    from graph_hscn_tpu_torch.config.config import OptimConfig, TrainingConfig
+    from graph_hscn_tpu_torch.models.mpnn import MPNN
+    from graph_hscn_tpu_torch.train import metrics
+    from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
+                                                        epoch_permutation,
+                                                        make_epoch_fn)
+    from graph_hscn_tpu_torch.train.loop import fit_on_device_dataset
+    from graph_hscn_tpu_torch.train.optimizers import build_optimizer
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    graphs = make_voc_superpixels(num_graphs=24, seed=19)
+    ds = DeviceDataset.build(graphs, device="cuda")
+    model = MPNN(conv_type="gcn", activation="relu", num_features=14,
+                 hidden_channels=16, num_classes=21, num_layers=2,
+                 dropout=0.1, readout="none",
+                 generator=torch.Generator().manual_seed(0))
+    split_ids = {"train": np.arange(16), "val": np.arange(16, 20),
+                 "test": np.arange(20, 24)}
+
+    m = copy.deepcopy(model).cuda()
+    opt = build_optimizer(m.parameters(), "adamW", 0.002, 1e-5,
+                          capturable=True)
+    stat = metrics.COUNT_METRICS["f1"].step
+    train_epoch, eval_epoch = make_epoch_fn(
+        m, opt, ds, 4, 4, "softmax_cross_entropy", node_level=True,
+        generator=torch.Generator(device="cuda").manual_seed(1), stat=stat)
+    for epoch_fn, perm in ((train_epoch, epoch_permutation(16, 4, 0)),
+                           (eval_epoch, epoch_permutation(16, 4, 0, False))):
+        for _ in range(2):
+            nb = epoch_fn.load(perm)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(nb):
+                    epoch_fn.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            losses, counts = epoch_fn.outs
+            assert counts.shape == (4, 21 * 21) and counts.dtype == torch.int64
+            # Each row counts the real nodes of its four graphs.
+            assert bool(losses.isfinite().all())
+            assert int(counts.sum()) == sum(
+                graphs[i].num_nodes for i in perm.reshape(-1) if i >= 0)
+        assert epoch_fn.replays == 2 * nb - 1
+
+    def fit(capture):
+        training = TrainingConfig(model_type="gcn",
+                                  loss_fn="softmax_cross_entropy",
+                                  metric="f1", epochs=2, eval_period=1,
+                                  patience=50, min_delta=0.0, seed=3)
+        return fit_on_device_dataset(
+            copy.deepcopy(model).cuda(), ds, split_ids, 4,
+            OptimConfig(optim_type="adamW", lr=0.002, weight_decay=1e-5),
+            training, Logger(metric_name="f1"), "cuda", node_level=True,
+            capture=capture)
+
+    before = metrics.sum_step_counts.passes
+    counted = {capture: fit(capture) for capture in (True, False)}
+    assert metrics.sum_step_counts.passes - before == 2 * 2 * 3
+    monkeypatch.delitem(metrics.COUNT_METRICS, "f1")
+    for capture, res in counted.items():
+        assert res.history == fit(capture).history, capture
+    assert metrics.sum_step_counts.passes - before == 2 * 2 * 3
+
+
 def test_capturable_adamw_follows_the_plain_one():
     """AdamW built capturable (its step count on the card) against the plain
     one over 5 steps on the same gradients: the weights within 1e-6."""
@@ -1178,6 +1251,9 @@ def test_captured_clustering_follows_the_eager_one():
 
     class Quiet:
         def info(self, msg):
+            pass
+
+        def wandb_log(self, scalars):
             pass
 
     graphs = make_peptides_func(num_graphs=24, seed=13, mean_nodes=30)

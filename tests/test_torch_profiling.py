@@ -87,11 +87,15 @@ def _raw(path: str, num_graphs: int, epochs: int = 1, **changes) -> dict:
 
 # The routes, small: the host loop on sparse batches, the device-resident
 # route and its fused twin, the HSCN pipeline (device-resident: its
-# clustering and its fit) and the edge-partitioned GCN on one rank.  Graph
-# 1 lands in the test split of each.
+# clustering and its fit) and the edge-partitioned GCN on one rank.  The
+# VOC GCN is an F1 fit on the host loop and on the device-resident route
+# (its steps return their confusion counts, not scores and targets).
+# Graph 1 lands in the test split of each.
 ROUTES = {
     "host_voc_gcn": _raw("GCN/voc_superpixels_GCN_sparse.yaml", 16,
                          **{"mp.num_layers": 2}),
+    "device_voc_gcn": _raw("GCN/voc_superpixels_GCN.yaml", 16,
+                           **{"mp.num_layers": 2}),
     "device_gcn": _raw("GCN/peptides_func_GCN.yaml", 16),
     "device_fused": _raw("GCN/peptides_func_GCN_fused.yaml", 16),
     "hscn": _raw("HSCN/peptides_func_HSCN.yaml", 32,
@@ -107,7 +111,8 @@ ROUTES = {
 # meets the graph in its first, compiling, epoch; the edge-partitioned
 # route compiles the test split's forward, and its de-optimized rerun of
 # the sharded program recurses without end.
-JAX_ONE_GRAPH = {"host_voc_gcn": None, "device_gcn": None,
+JAX_ONE_GRAPH = {"host_voc_gcn": None, "device_voc_gcn": None,
+                 "device_gcn": None,
                  "device_fused": None, "hscn": FloatingPointError,
                  "edge_gcn": RecursionError}
 # NaN in every graph: JAX raises in its first program, FloatingPointError,

@@ -3,7 +3,8 @@
 - on the host loop, the device route and the device HSCN pipeline, the
   ``train_step`` and ``eval_step`` calls equal the fit's steps, an epoch
   pass has one ``epoch_end.readback`` and one ``epoch_end.metric``, and
-  the readback's bytes are those of the tensors the pass reads back;
+  the readback's bytes are those of the tensors the pass reads back (on
+  the host loop's F1 fit the losses and one vector of summed counts);
 - the spans' epoch tags: set-up under None, a train epoch's spans and
   its evals' under that epoch;
 - ``data.pack``'s self time is its total less its ``data.csr_plan``
@@ -94,14 +95,19 @@ def _by(totals: dict, name: str, field: str = "calls") -> dict:
 def test_step_and_epoch_end_spans(route, monkeypatch):
     """(a) and (b): the step spans count the fit's steps, each pass one
     readback and one metric, the readback's bytes those ``collect``
-    reads; set-up under None, each epoch's train and eval spans under
-    it."""
+    reads: the losses and the scores, targets and masks, or on a metric
+    of counts (the host loop's VOC F1) the losses and the steps' counts
+    summed to one row; set-up under None, each epoch's train and eval
+    spans under it."""
     read = []
     collect = loop._StepRunner.collect
 
-    def spy(self, *tensors):
-        read.append(sum(t.nbytes for t in tensors))
-        return collect(self, *tensors)
+    def spy(self, losses, *outs):
+        counted = self.stat is not None
+        assert counted == (route == "host")
+        read.append(losses.nbytes + (outs[0][0].nbytes if counted else
+                                     sum(t.nbytes for t in outs)))
+        return collect(self, losses, *outs)
 
     monkeypatch.setattr(loop._StepRunner, "collect", spy)
     result = _fit(ROUTES[route])
