@@ -21,8 +21,9 @@ from graph_hscn_tpu_torch.config.config import parse_config
 from hscnbench import check, datasets, manifest
 from hscnbench.probe import Probe
 from hscnbench.ranks import Ranks
-from hscnbench.reference import (dropout_fn, follow, half_batch,
-                                 make_batch, make_weights, matmul_precision)
+from hscnbench.reference import (Dropout, as_dtype, follow, half_batch,
+                                 lr_schedule, make_batch, make_weights,
+                                 matmul_precision)
 from hscnbench.trace import Trace
 from hscnbench.window import BenchLogger, StopFit, Window
 
@@ -220,10 +221,12 @@ def train_program(name: str, seed: int, seconds: float, trace: bool,
     dims = {"features": int(arrays["node_feat"].shape[1]),
             "classes": int(arrays["y"].shape[1]) if "y" in arrays
             else int(arrays["num_node_classes"])}
-    spec = cell.reference.targets(cell.config, dims)
-    weights = {t: make_weights(s, seed + i, dev)
-               for i, (t, s) in enumerate(sorted(spec.items()))}
+    if "edge_feat" in arrays:
+        dims["edge_features"] = int(arrays["edge_feat"].shape[1])
     ref = cell.reference
+    spec = ref.targets(cell.config, dims)
+    weights = {t: make_weights(s, seed + i, dev, initial_rule(ref, t))
+               for i, (t, s) in enumerate(sorted(spec.items()))}
     probe = Probe({t: program_names(cell.route, w)
                    for t, w in weights.items()},
                   observe=ref.observed, steps=observe_steps(cell),
@@ -255,6 +258,15 @@ def train_program(name: str, seed: int, seconds: float, trace: bool,
         logger.finish()
     sync(dev)
     return ctx, probe, weights
+
+
+def initial_rule(ref, target: str):
+    """The reference module's ``initial`` for ``target``'s tensors, as
+    ``make_weights`` takes it (None without the hook)."""
+    initial = getattr(ref, "initial", None)
+    if initial is None:
+        return None
+    return lambda name, shape: initial(target, name, shape)
 
 
 def observe_steps(cell) -> int:
@@ -396,16 +408,21 @@ def reference_run(ctx, weights: dict, tf32: bool, observe: int,
                   dtype=torch.float32) -> tuple[dict, list]:
     """The reference's first ``observe`` steps of ``target`` (default: the
     observed model, then through its epoch 0) from ``weights`` (TF32 as
-    asked), over the batches the route works out again.  For the readings
-    alone: a planted fault (``half``: half of each batch left out, the
-    mean taken over the rest; ``frozen``: no update), or float64
-    (``dtype``)."""
+    asked), over the batches the route works out again.  The observed
+    model's optimizer clips and schedules its lr as the configuration
+    parsed by the port says (``optim``), over the horizon the fit gives
+    its schedule (``training.epochs`` x epoch 0's train steps); a further
+    trained model's (the SCN's) does neither, as the port's clustering.
+    For the readings alone: a planted fault (``half``: half of each batch
+    left out, the mean taken over the rest; ``frozen``: no update), or
+    float64 (``dtype``)."""
     ref = ctx.cell.reference
     target = target or ref.observed
     model, order_of = stage(ctx, target)
     whole = target == ref.observed
     order = order_of(0)
-    epoch_steps, epoch = (len(order) if whole else None), 1
+    epoch0_steps = len(order)
+    epoch_steps, epoch = (epoch0_steps if whole else None), 1
     while len(order) < observe:
         order = order + order_of(epoch)
         epoch += 1
@@ -416,21 +433,22 @@ def reference_run(ctx, weights: dict, tf32: bool, observe: int,
     init = weights[target]
     if dtype != torch.float32:
         init = {n: w.to(dtype) for n, w in init.items()}
-        batches = [dataclasses.replace(
-            b, x=b.x.to(dtype),
-            y=None if b.y is None else b.y.to(dtype),
-            node_y=None if b.node_y is None else b.node_y.to(dtype))
-            for b in batches]
+        batches = [as_dtype(b, dtype) for b in batches]
     mp = ctx.cell.config["run"].get("mp", {})
     rate = (float(mp.get("dropout", 0.0))
             if whole and getattr(ctx.cell.route, "DROPOUT", True) else 0.0)
-    drop = dropout_fn(rate, int(mp.get("hidden_channels", 0)), ctx.seed,
-                      ctx.device)
+    drop = Dropout(rate, int(mp.get("hidden_channels", 0)), ctx.seed,
+                   ctx.device)
+    optim = ctx.cfg.optim
+    schedule = (lr_schedule(optim.lr, optim.schedule, optim.warmup_steps,
+                            ctx.cfg.training.epochs * epoch0_steps)
+                if whole else None)
     with matmul_precision(tf32):
         out = follow(model, ctx.cell.config, init, batches, drop, observe,
                      epoch_steps,
                      loss_fn=half_batch(model.loss) if half else None,
-                     frozen=frozen)
+                     frozen=frozen, clip=whole and optim.clip_grad_norm,
+                     schedule=schedule)
     return out, batches
 
 

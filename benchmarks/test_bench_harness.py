@@ -33,6 +33,15 @@ SMALL = {"peptides_func_hscn.device": 96, "voc_gcn.host_sparse": 48,
          "voc_gcn.device_dense": 48}
 
 
+# Each cell's end-to-end metrics: the host loop's rate follows its host's
+# shared cores, so there it is a per-layer metric (host_loop.graphs_per_s).
+END_TO_END = {"peptides_func_hscn.device": {"train_graphs_per_s",
+                                            "peak_mem_gib", "setup_s"},
+              "voc_gcn.host_sparse": {"peak_mem_gib", "setup_s"},
+              "voc_gcn.device_dense": {"train_graphs_per_s", "peak_mem_gib",
+                                       "setup_s"}}
+
+
 # Train steps read at a small size: no more than its two warm-up epochs
 # hold (on the CPU every step is eager; the card's replays are read by
 # the probe's replay wrapper, tested alone below).
@@ -64,8 +73,7 @@ def test_every_cell_is_found_by_name():
         assert cell.config["source"] == entry["source"]
         for metric in cell.per_layer:
             assert callable(manifest.metric_reader(metric["name"]).read)
-        assert {e["name"] for e in cell.end_to_end} == {
-            "train_graphs_per_s", "peak_mem_gib", "setup_s"}
+        assert {e["name"] for e in cell.end_to_end} == END_TO_END[w["name"]]
 
 
 def test_a_cell_added_as_files_alone(tmp_path):
@@ -91,6 +99,22 @@ def test_a_cell_added_as_files_alone(tmp_path):
     assert cell.route.__doc__.startswith("Route: the host loop")
     assert cell.per_layer == [
         p for p in m["per_layer"] if "workloads" not in p]
+
+
+def test_the_host_loops_rate_is_counted_as_the_end_to_end_rate():
+    """host_loop.graphs_per_s: the window's train graphs over its wall, as
+    run_cell counts train_graphs_per_s; host_loop.step_ms: the train step
+    spans' mean, as train_step.host_ms reads it."""
+    window = harness.Window(1.0, 2, 1)
+    window.open_epoch, window.close_epoch = 1, 4
+    window.t_open, window.t_close = 10.0, 12.5
+    ctx = type("C", (), {"window": window,
+                         "split": {"train": np.arange(40)}})()
+    rate = manifest.metric_reader("host_loop.graphs_per_s").read(ctx)
+    assert rate == pytest.approx(3 * 40 / 2.5)
+    step = manifest.metric_reader("host_loop.step_ms")
+    assert step.read(ctx) == manifest.metric_reader(
+        "train_step.host_ms").read(ctx)
 
 
 def test_flops_match_a_hand_count_on_two_graphs():
@@ -187,8 +211,7 @@ def test_a_sound_run_is_correct_and_its_line_has_the_keys(name):
     assert list(result) == ["correct", "attempted", "failed", "metrics",
                             "device", "checks"]
     assert result["correct"] is True, result["checks"]
-    assert set(result["metrics"]) == {"train_graphs_per_s", "peak_mem_gib",
-                                      "setup_s"}
+    assert set(result["metrics"]) == END_TO_END[name]
     assert set(result["device"]) >= {"platform", "kind", "count",
                                      "memory_peak_bytes"}
     assert set(result["checks"]) == set(

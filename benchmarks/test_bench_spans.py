@@ -25,7 +25,14 @@ SMALL = {"peptides_func_hscn.device": 96, "voc_gcn.host_sparse": 48,
          "voc_gcn.device_dense": 48}
 SPANS = {"train_step.host_ms", "data.csr_plan_ms_per_step",
          "epoch_end.metric_ms", "epoch_end.readback_mb", "setup.data_s",
-         "setup.clustering_s"}
+         "setup.clustering_s", "host_loop.step_ms"}
+# The span metrics each cell has to read: the host loop's step under its
+# own name there (its rate is not an end-to-end metric).
+EXPECTED = {"voc_gcn.host_sparse": {"host_loop.step_ms",
+                                    "data.csr_plan_ms_per_step",
+                                    "setup.data_s"}}
+CAPTURED = {"train_step.host_ms", "epoch_end.metric_ms",
+            "epoch_end.readback_mb", "setup.data_s"}
 
 
 def traced_small(name: str, seed: int = 7) -> tuple[dict, manifest.Cell]:
@@ -47,8 +54,7 @@ def traced_small(name: str, seed: int = 7) -> tuple[dict, manifest.Cell]:
 def test_each_span_metric_reads_in_its_cells(name):
     result, cell = traced_small(name)
     mine = {m["name"] for m in cell.per_layer} & SPANS
-    assert mine >= {"train_step.host_ms", "epoch_end.metric_ms",
-                    "epoch_end.readback_mb", "setup.data_s"}
+    assert mine >= EXPECTED.get(name, CAPTURED)
     values = {k: v["value"] for k, v in result["metrics"].items()}
     for metric in mine:
         assert metric in values, metric
