@@ -71,9 +71,27 @@ class MPNNConfig:
     # hidden_channels // H each, PyG GATConv(concat=True) semantics).
     num_heads: int = D.NUM_HEADS
     gps_local_conv: str = "gcn"     # "gcn" | "gatedgcn" (edge features)
+    # Port-only (the JAX package has neither): GPS's layer, "prenorm" (the
+    # JAX package's) or "graphgps" (LRGB's GraphGPS, models/gps.py:
+    # GraphGPSModel), and dropout on its attention weights.
+    gps_layer: str = "prenorm"
+    attn_dropout: float = 0.0
 
     def __post_init__(self):
         _check(0.0 <= self.dropout <= 1.0, "dropout must be in [0, 1]")
+        _check(0.0 <= self.attn_dropout <= 1.0,
+               "attn_dropout must be in [0, 1]")
+        _check(self.gps_layer in ("prenorm", "graphgps"),
+               f"unknown gps_layer {self.gps_layer}")
+        _check(self.gps_layer == "prenorm"
+               or self.conv_type.lower() == "gps",
+               "gps_layer is read by conv_type gps alone")
+        _check(self.attn_dropout == 0.0 or self.gps_layer == "graphgps",
+               "attn_dropout is read by gps_layer graphgps alone")
+        if self.gps_layer == "graphgps":
+            _check(self.gps_local_conv.lower() == "gatedgcn",
+                   "gps_layer graphgps takes gps_local_conv gatedgcn (its "
+                   "CustomGatedGCN)")
         _check(self.num_layers >= 1, "num_layers must be >= 1")
         _check(self.hidden_channels >= 1, "hidden_channels must be >= 1")
         if self.conv_type.lower() in ("gps", "gat"):
@@ -178,8 +196,20 @@ class PEConfig:
     # transform (train.py:29-51, quirk #6).  trainable=True learns it
     # end-to-end instead.
     trainable: bool = False
+    # Port-only: "signnet" (the reference's) or "lappe", GraphGPS's LapPE
+    # DeepSet inside the model (models/encoders.py:LapPENodeEncoder, with
+    # mp.gps_layer: graphgps): dim_pe wide, ``layers`` deep, no post MLP.
+    encoder: str = "signnet"
 
     def __post_init__(self):
+        _check(self.encoder in ("signnet", "lappe"),
+               f"unknown PE encoder {self.encoder}")
+        if self.encoder == "lappe":
+            _check(self.model == "DeepSet" and self.post_layers == 0
+                   and self.layers >= 1,
+                   "the LapPE encoder is a DeepSet of layers >= 1 with no "
+                   "post layers (post_layers: 0)")
+            return
         # Reference signnet.py:298-299 / :305-306.
         _check(self.model in ("MLP", "DeepSet"),
                f"Unexpected SignNet model {self.model}")
@@ -291,6 +321,22 @@ class ExperimentConfig:
         return f"{self.data.dataset_name}_HSCN_{self.hscn.num_clusters}"
 
 
+def refuse_graphgps(route: str, mpnn: MPNNConfig | None,
+                    pe: PEConfig | None = None) -> None:
+    """Raise on a mesh route given the port-only GraphGPS settings away
+    from their defaults (named "section.key: value"): its BatchNorm
+    statistics, attention dropout and LapPE run on one device alone."""
+    found = []
+    if mpnn is not None and mpnn.gps_layer != "prenorm":
+        found.append(f"mp.gps_layer: {mpnn.gps_layer}")
+    if pe is not None and pe.encoder != "signnet":
+        found.append(f"pe.encoder: {pe.encoder}")
+    if found:
+        raise ValueError(f"{route} does not run {', '.join(found)}: "
+                         "LRGB's GraphGPS trains on one device "
+                         "(runtime.device_dataset or the host loop)")
+
+
 def _filter_kwargs(cls, raw: dict[str, Any]) -> dict[str, Any]:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in raw.items() if k in names}
@@ -332,6 +378,9 @@ def parse_config(raw: dict[str, Any]) -> ExperimentConfig:
             pe_kw["eigen_laplacian_norm"] = pe_raw["eig_lap_norm"]
         pe = PEConfig(**pe_kw)
         data.pe = True
+        _check(pe.encoder != "lappe" or (
+            mpnn is not None and mpnn.gps_layer == "graphgps"),
+            "pe.encoder lappe is read by mp.gps_layer: graphgps alone")
 
     mesh = MeshConfig(**_filter_kwargs(MeshConfig, raw.get("mesh", {})))
     compat = CompatConfig(**_filter_kwargs(CompatConfig,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from pathlib import Path
 from typing import Callable, Iterator
 
 import numpy as np
@@ -46,10 +47,11 @@ class DataModule:
     with_spmm_plan: bool = False    # attach the SpMM kernel's CSR plans
     budgets: tuple[PadBudget, ...] | None = None  # shape buckets (ascending)
     num_workers: int = 0
+    source: str | None = None       # the dataset file, when read from one
 
     @classmethod
     def from_config(cls, data_cfg, pad_safety: float = 1.15) -> "DataModule":
-        graphs = None
+        graphs = source = None
         if data_cfg.data_dir is not None:
             from graph_hscn_tpu_torch.data import lrgb
             graphs, split_idx = lrgb.try_load(data_cfg.data_dir,
@@ -64,6 +66,8 @@ class DataModule:
                     "scripts/convert_lrgb.py); refusing to fall back to "
                     "synthetic data silently — unset data_dir for the "
                     "synthetic generator")
+            source = str(Path(data_cfg.data_dir)
+                         / f"{data_cfg.dataset_name}.npz")
         if graphs is None:
             maker = _SYNTH.get(data_cfg.dataset_name)
             if maker is None:
@@ -85,7 +89,8 @@ class DataModule:
                    batch_size=data_cfg.batch_size,
                    num_features=g0.x.shape[1], num_classes=num_classes,
                    task_level=data_cfg.task_level, seed=data_cfg.seed,
-                   num_workers=data_cfg.num_workers, budgets=budgets)
+                   num_workers=data_cfg.num_workers, budgets=budgets,
+                   source=source)
 
     def split(self, name: str) -> list[GraphData]:
         return [self.graphs[int(i)] for i in self.split_idx[name]]

@@ -17,6 +17,20 @@ adjacency normalized once a forward (``GCNConv.normalize_dense``, the
 function JAX's layer applies to it each layer); the GatedGCN one takes no
 plan on slotted batches, so its segment sums are plain ``index_add_``.
 
+:class:`GraphGPSModel` (port-only; ``mp.gps_layer: graphgps``) is LRGB's
+GraphGPS (Rampasek et al. 2022, ``graphgps/layer/gps_layer.py``) as its
+Peptides-func config runs it, post-norm with BatchNorm over real rows:
+  x   = [AtomEnc(x_cat) | LapPE]           (models/encoders.py)
+  e   = BondEnc(e_cat)
+  layer (GraphGPSLayer):
+    CustomGatedGCN (GatedGCNConv(norm="batch")) from x_g, e^ of GatedGCN:
+      x' = x + Drop(relu(BN_x(x_g)));  e = e + Drop(relu(BN_e(e^)))
+    x_l = BN_l(x')
+    x_a = BN_a(x + Drop(MHA(x, key mask, attention dropout)))
+    h   = x_l + x_a
+    out = BN_2(h + Drop(Dense(Drop(relu(Dense_2H(h))))))
+  logits = SANGraphHead(x)                 mean over real nodes, 3 Dense
+
 Parameters, against the flax module's compact names (``models/convert.py``
 maps one onto the other): ``encoder`` (``Dense_0``), ``edge_encoder``
 (``Dense_1``, local "gatedgcn" only), ``layers.i`` (``GPSLayer_i``),
@@ -31,13 +45,20 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
-from graph_hscn_tpu_torch.models.layers import (ACTIVATIONS, Dense, GCNConv,
-                                               GatedGCNConv, LayerNorm,
-                                               dropout, lecun_normal_)
+from graph_hscn_tpu_torch.models.encoders import (ATOM_FEATURE_DIMS,
+                                                 BOND_FEATURE_DIMS,
+                                                 CategoryEmbedding,
+                                                 LapPENodeEncoder,
+                                                 SANGraphHead)
+from graph_hscn_tpu_torch.models.layers import (ACTIVATIONS, BatchNorm, Dense,
+                                               GCNConv, GatedGCNConv,
+                                               LayerNorm, dropout,
+                                               lecun_normal_)
 from graph_hscn_tpu_torch.ops.dense import resolve_dense_adj
 from graph_hscn_tpu_torch.ops.segment import graph_readout_mean
 
@@ -59,22 +80,30 @@ class GraphMHA(nn.Module):
     ``DenseGeneral`` kernels [H, nh, hd], biases [nh, hd]) and ``out``
     (nh*hd -> H; flax kernel [nh, hd, H]).  Initialised glorot-uniform on
     the flattened [in, nh*hd] shape, as flax's ``DenseGeneral`` is.
+
+    ``dropout`` (port-only, ``mp.attn_dropout``): in training the weights
+    [G, nh, S, S] after the softmax go through :func:`dropout`, bits from
+    the forward's ``generator``, as ``torch.nn.MultiheadAttention``'s
+    ``dropout`` does; at 0 nothing is drawn.
     """
 
     def __init__(self, hidden: int, num_heads: int,
                  dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout: float = 0.0):
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by heads "
                              f"{num_heads}")
+        self.dropout = dropout
         self.num_heads = num_heads
         self.head_dim = hidden // num_heads
         for name in ("query", "key", "value"):
             setattr(self, name, Dense(hidden, hidden, dtype, generator))
         self.out = Dense(hidden, hidden, dtype, generator)
 
-    def forward(self, xb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, xb: torch.Tensor, mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         G, S, _ = xb.shape
         nh, hd = self.num_heads, self.head_dim
 
@@ -85,9 +114,17 @@ class GraphMHA(nn.Module):
         scores = torch.einsum("gqhd,gkhd->ghqk", q, k) / math.sqrt(hd)
         bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :]
         attn = torch.softmax((scores + bias.to(scores.dtype)).float(), -1)
+        attn = dropout(attn, self.dropout, self.training, generator)
         out = torch.einsum("ghqk,gkhd->gqhd", attn.to(v.dtype), v)
         out = self.out(out.reshape(G, S, nh * hd))
         return torch.where(mask[:, :, None], out, 0.0)
+
+    @staticmethod
+    def pairs_computed(n_node: np.ndarray, slot: int) -> int:
+        """The query-key pairs :meth:`forward` scores a head over blocks
+        of ``slot`` rows holding ``n_node`` real nodes each: every pair of
+        a block, the padding's too."""
+        return len(n_node) * slot * slot
 
 
 class GPSLayer(nn.Module):
@@ -206,3 +243,110 @@ class GPSModel(nn.Module):
             return x
         return graph_readout_mean(x, batch.node_graph,
                                   batch.num_graphs_padded)
+
+
+class GraphGPSLayer(nn.Module):
+    """One post-norm layer of LRGB's GraphGPS (module docstring): the
+    local module ``local`` (GatedGCNConv in GraphGPS's form), the
+    attention ``attn`` (:class:`GraphMHA` with its attention dropout), the
+    FFN ``ffn0``/``ffn1`` with relu, and :class:`BatchNorm`s ``norm_local``,
+    ``norm_attn``, ``norm_ffn`` over the real nodes.  ``dropout``: the
+    node dropout, ``attn_dropout`` the attention weights'."""
+
+    def __init__(self, hidden: int, num_heads: int, dropout: float,
+                 attn_dropout: float, dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.hidden = hidden
+        self.dropout = dropout
+        self.local = GatedGCNConv(hidden, dtype, generator, residual=True,
+                                  norm="batch", dropout=dropout)
+        self.norm_local = BatchNorm(hidden)
+        self.attn = GraphMHA(hidden, num_heads, dtype, generator,
+                             attn_dropout)
+        self.norm_attn = BatchNorm(hidden)
+        self.ffn0 = Dense(hidden, 2 * hidden, dtype, generator)
+        self.ffn1 = Dense(2 * hidden, hidden, dtype, generator)
+        self.norm_ffn = BatchNorm(hidden)
+
+    def forward(self, x, e, batch: GraphBatch,
+                generator: torch.Generator | None = None):
+        """Returns (x', e')."""
+        mask = batch.node_mask
+
+        def drop(h):
+            return dropout(h, self.dropout, self.training, generator)
+
+        local, e = self.local(x, e, batch.senders, batch.receivers,
+                              batch.edge_mask,
+                              num_nodes=batch.num_nodes_padded,
+                              plan=batch.spmm, node_mask=mask,
+                              generator=generator)
+        h_local = self.norm_local(local, mask)
+        attn = self.attn(x.reshape(-1, batch.slot, self.hidden),
+                         mask.reshape(-1, batch.slot), generator)
+        h_attn = self.norm_attn(x + drop(attn.reshape(-1, self.hidden)),
+                                mask)
+        h = h_local + h_attn
+        f = self.ffn1(drop(torch.relu(self.ffn0(h))))
+        return self.norm_ffn(h + drop(f), mask), e
+
+
+class GraphGPSModel(nn.Module):
+    """LRGB's GraphGPS on graph-level Peptides (module docstring): the
+    node encoder ``atom`` (hidden - dim_pe wide, the whole hidden width
+    without ``lap_pe``) beside ``lap_pe`` (:class:`LapPENodeEncoder`, from
+    ``pe`` when its encoder is "lappe"), the edge encoder ``bond``,
+    ``layers.i`` (:class:`GraphGPSLayer`), the ``head``
+    (:class:`SANGraphHead`).  The inputs are OGB's categorical atom and
+    bond features; slotted batches, as :class:`GPSModel`."""
+
+    def __init__(self, num_features: int, hidden_channels: int,
+                 num_classes: int, num_layers: int, num_heads: int = 4,
+                 dropout: float = 0.0, attn_dropout: float = 0.0,
+                 readout: str = "mean", dtype: torch.dtype | None = None,
+                 num_edge_features: int | None = None, pe=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if readout != "mean":
+            raise ValueError("gps_layer graphgps has the san_graph head: a "
+                             "graph-level task")
+        if (num_features, num_edge_features) != (len(ATOM_FEATURE_DIMS),
+                                                 len(BOND_FEATURE_DIMS)):
+            raise ValueError(
+                f"gps_layer graphgps embeds OGB's {len(ATOM_FEATURE_DIMS)} "
+                f"atom and {len(BOND_FEATURE_DIMS)} bond features; the "
+                f"dataset has {num_features} and {num_edge_features}")
+        self.lap_pe = None
+        width = hidden_channels
+        if pe is not None:
+            self.lap_pe = LapPENodeEncoder(pe.dim_pe, pe.layers,
+                                           pe.eigen_max_freqs, generator)
+            width -= pe.dim_pe
+        self.atom = CategoryEmbedding(ATOM_FEATURE_DIMS, width, generator)
+        self.bond = CategoryEmbedding(BOND_FEATURE_DIMS, hidden_channels,
+                                      generator)
+        self.layers = nn.ModuleList(
+            GraphGPSLayer(hidden_channels, num_heads, dropout, attn_dropout,
+                          dtype, generator) for _ in range(num_layers))
+        self.head = SANGraphHead(hidden_channels, num_classes,
+                                 generator=generator)
+
+    def forward(self, batch: GraphBatch,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits [G, C], float32.  In training the sign flips and
+        dropouts draw their bits from ``generator``, in that order."""
+        if batch.slot is None:
+            raise ValueError("GraphGPS's attention needs the slotted dense "
+                             "layout (runtime.dense_path 'auto'/'dense')")
+        if batch.edge_feat is None:
+            raise ValueError("gps_layer graphgps needs the bond features")
+        x = self.atom(batch.node_feat)
+        if self.lap_pe is not None:
+            x = torch.cat([x, self.lap_pe(batch, generator)], -1)
+        x = torch.where(batch.node_mask[:, None], x, 0.0)
+        e = torch.where(batch.edge_mask[:, None],
+                        self.bond(batch.edge_feat), 0.0)
+        for layer in self.layers:
+            x, e = layer(x, e, batch, generator)
+        return self.head(x, batch)

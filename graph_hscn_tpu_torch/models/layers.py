@@ -475,6 +475,46 @@ class LayerNorm(nn.Module):
                                 self.dtype or torch.float32)
 
 
+BATCH_NORM_EPS = 1e-5        # torch's BatchNorm1d
+BATCH_NORM_MOMENTUM = 0.1
+
+
+class BatchNorm(nn.Module):
+    """torch's ``BatchNorm1d`` over the real rows of a padded batch, the
+    norm of LRGB's GraphGPS: in training the statistics of the rows that
+    ``mask`` marks (the biased variance normalizes, the unbiased one
+    enters the running estimate, momentum ``BATCH_NORM_MOMENTUM``), in eval
+    the running estimates; epsilon ``BATCH_NORM_EPS``, ``scale`` and
+    ``bias``; padding rows come out zero.  Tensor arithmetic with no host
+    sync, so a captured step holds it and updates the running estimates at
+    every replay.  Statistics and result in float32."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        m = mask[:, None]
+        if self.training:
+            n = m.sum().to(x.dtype)
+            mean = torch.where(m, x, 0.0).sum(0) / n.clamp_min(1.0)
+            d = torch.where(m, x - mean, 0.0)
+            var = (d * d).sum(0) / n.clamp_min(1.0)
+            with torch.no_grad():
+                k = BATCH_NORM_MOMENTUM
+                self.running_mean.mul_(1 - k).add_(k * mean)
+                self.running_var.mul_(1 - k).add_(
+                    k * var * n / (n - 1).clamp_min(1.0))
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + BATCH_NORM_EPS)
+        return torch.where(m, y * self.scale + self.bias, 0.0)
+
+
 class GatedGCNConv(nn.Module):
     """GatedGCN (Bresson & Laurent), the JAX layer's (layers.py:418-479):
         e'_ij = C e_ij + D x_i + E x_j
@@ -485,6 +525,10 @@ class GatedGCNConv(nn.Module):
     padding edges (eps = 1e-6).  Returns (x', e').  Node and edge states go
     in ``features`` wide, as in both JAX users: GatedGCNNet (residual,
     LayerNorm) and GPS's local module (``residual=False, norm="none"``).
+    ``norm="batch"`` is GraphGPS's CustomGatedGCN (port-only):
+    :class:`BatchNorm` on x' over the real nodes (``node_mask``) and on e'
+    over the real edges, relu, dropout at ``dropout`` (x' then e', bits
+    from ``generator``), the residuals.
 
     With a CSR plan and the backend allowing it, the two segment sums and
     the backwards of the three edge gathers run the ``segment_reduce``
@@ -501,23 +545,29 @@ class GatedGCNConv(nn.Module):
 
     def __init__(self, features: int, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None,
-                 residual: bool = True, norm: str = "layer"):
+                 residual: bool = True, norm: str = "layer",
+                 dropout: float = 0.0):
         super().__init__()
-        if norm not in ("layer", "none"):
-            raise ValueError(f"GatedGCNConv norm {norm!r}: 'layer' or "
-                             "'none'")
+        if norm not in ("layer", "none", "batch"):
+            raise ValueError(f"GatedGCNConv norm {norm!r}: 'layer', "
+                             "'batch' or 'none'")
         self.features = features
         self.dtype = dtype
         self.residual = residual
+        self.norm = norm
+        self.dropout = dropout
         for name in "ABCDE":
             setattr(self, name, Dense(features, features, dtype, generator))
         self.norm_x = self.norm_e = None
         if norm == "layer":
             self.norm_x = LayerNorm(features, dtype=dtype)
             self.norm_e = LayerNorm(features, dtype=dtype)
+        elif norm == "batch":
+            self.norm_x = BatchNorm(features)
+            self.norm_e = BatchNorm(features)
 
     def forward(self, x, edge_feat, senders, receivers, edge_mask,
-                num_nodes=None, plan=None):
+                num_nodes=None, plan=None, node_mask=None, generator=None):
         n = num_nodes or x.shape[0]
         if self.dtype is not None:
             x, edge_feat = x.to(self.dtype), edge_feat.to(self.dtype)
@@ -530,9 +580,14 @@ class GatedGCNConv(nn.Module):
         msgs = sig * gather_planned(self.B(x), senders, plan, side="sender")
         agg = segment_sum_planned(msgs, receivers, n, plan)
         x_new = self.A(x) + agg / (denom + self.EPS)
-        if self.norm_x is not None:
+        if self.norm == "batch":
+            x_new = self.norm_x(x_new, node_mask).to(x.dtype)
+            e_new = self.norm_e(e_new, edge_mask).to(x.dtype)
+        elif self.norm_x is not None:
             x_new, e_new = self.norm_x(x_new), self.norm_e(e_new)
         x_new, e_new = torch.relu(x_new), torch.relu(e_new)
+        x_new = dropout(x_new, self.dropout, self.training, generator)
+        e_new = dropout(e_new, self.dropout, self.training, generator)
         if self.residual and x.shape[-1] == self.features:
             x_new = x + x_new
         if self.residual and edge_feat.shape[-1] == self.features:

@@ -30,7 +30,7 @@ from torch import nn
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
 from graph_hscn_tpu_torch.models.gatedgcn import GatedGCNNet
-from graph_hscn_tpu_torch.models.gps import GPSModel
+from graph_hscn_tpu_torch.models.gps import GPSModel, GraphGPSModel
 from graph_hscn_tpu_torch.models.layers import (ACTIVATIONS, GATConv,
                                                GCNConv, GINConv, LayerNorm,
                                                dropout)
@@ -119,12 +119,30 @@ class MPNN(nn.Module):
 def build_mpnn(model_cfg, num_features: int, num_classes: int,
                compat: bool = True, readout: str = "mean", dtype=None,
                generator: torch.Generator | None = None,
-               num_edge_features: int | None = None) -> nn.Module:
+               num_edge_features: int | None = None,
+               pe=None) -> nn.Module:
     """Mirror of the JAX ``build_mpnn``: GatedGCN, GPS, or the GCN/GAT/GIN
-    ``MPNN``.  ``num_edge_features``: the width of the batches' edge
-    features (None without them), which only the GatedGCN and GPS
+    ``MPNN``; port-only, ``gps_layer: graphgps`` builds LRGB's
+    ``GraphGPSModel`` with the LapPE encoder of ``pe`` (a ``PEConfig``,
+    or None without PE).  ``num_edge_features``: the width of the batches'
+    edge features (None without them), which only the GatedGCN and GPS
     branches read."""
     conv_type = model_cfg.conv_type.lower()
+    if conv_type == "gps" and model_cfg.gps_layer == "graphgps":
+        return GraphGPSModel(
+            num_features=num_features,
+            hidden_channels=model_cfg.hidden_channels,
+            num_classes=num_classes,
+            num_layers=model_cfg.num_layers,
+            num_heads=model_cfg.num_heads,
+            dropout=model_cfg.dropout,
+            attn_dropout=model_cfg.attn_dropout,
+            readout=readout,
+            dtype=dtype,
+            num_edge_features=num_edge_features,
+            pe=pe,
+            generator=generator,
+        )
     if conv_type == "gatedgcn":
         return GatedGCNNet(
             num_features=num_features,

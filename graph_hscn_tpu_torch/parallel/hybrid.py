@@ -35,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from graph_hscn_tpu_torch.config.config import refuse_graphgps
 from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch, round_up
 from graph_hscn_tpu_torch.ops.spmm import kernel_enabled
 from graph_hscn_tpu_torch.parallel.edge_partition import (
@@ -176,6 +177,7 @@ def fit_hybrid(dm, mesh: Mesh, mpnn_cfg, optim_cfg, training_cfg, logger,
     graphs and edge-partitions it over its ranks; ``fit_blocks``' eval
     cadence, early stop and checkpoints, or with ``eval_only`` the
     restored snapshot's ({split: {"loss", metric}}, meta)."""
+    refuse_graphgps("the hybrid path", mpnn_cfg)
     if training_cfg.loss_fn != "softmax_cross_entropy":
         raise ValueError("hybrid path computes node-level softmax cross "
                          "entropy; set loss_fn: softmax_cross_entropy")

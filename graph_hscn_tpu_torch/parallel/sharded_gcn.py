@@ -51,6 +51,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from graph_hscn_tpu_torch.config.config import refuse_graphgps
 from graph_hscn_tpu_torch.data.batching import PadBudget, pack_batch
 from graph_hscn_tpu_torch.models.layers import (Dense, dropout,
                                                 glorot_uniform_, leaky_relu)
@@ -569,6 +570,7 @@ def fit_edge_partitioned(dm, mesh: Mesh, mpnn_cfg, optim_cfg, training_cfg,
     ({split: {"loss", metric}}, meta) for val and test, each split's
     scores and targets over its real rows put in ``predictions_sink``.
     """
+    refuse_graphgps("the edge-partitioned path", mpnn_cfg)
     if training_cfg.loss_fn != "softmax_cross_entropy":
         raise ValueError(
             "edge-partitioned path computes node-level softmax cross "

@@ -47,7 +47,8 @@ import torch
 import torch.distributed as dist
 
 from graph_hscn_tpu_torch.config import defaults as D
-from graph_hscn_tpu_torch.config.config import ExperimentConfig
+from graph_hscn_tpu_torch.config.config import (ExperimentConfig,
+                                                refuse_graphgps)
 from graph_hscn_tpu_torch.data.pipeline import DataModule
 from graph_hscn_tpu_torch.hscn_pipeline import (cluster_on_host,
                                                  run_hscn_pipeline)
@@ -174,7 +175,10 @@ def _model(cfg: ExperimentConfig, dm, device, compute_dtype, logger,
     init_gen = torch.Generator().manual_seed(cfg.training.seed)
     readout = "none" if dm.task_level == "node" else "mean"
     fused = _use_fused_stack(cfg, dm, device)
-    wrap = (cfg.pe is not None and not cfg.compat.frozen_random_signnet
+    lap_pe = cfg.pe if cfg.pe is not None and cfg.pe.encoder == "lappe" \
+        else None
+    wrap = (cfg.pe is not None and lap_pe is None
+            and not cfg.compat.frozen_random_signnet
             and (signnet_on_fused or not fused))
     # The core reads the encoder's output, dim_emb wide.
     in_features = cfg.pe.dim_emb if wrap else dm.num_features
@@ -193,7 +197,8 @@ def _model(cfg: ExperimentConfig, dm, device, compute_dtype, logger,
         model = build_mpnn(cfg.mpnn, in_features, dm.num_classes,
                            compat=cfg.compat.double_relu, readout=readout,
                            dtype=compute_dtype, generator=init_gen,
-                           num_edge_features=dm.num_edge_features)
+                           num_edge_features=dm.num_edge_features,
+                           pe=lap_pe)
         if compute_dtype is not None:
             logger.info(f"Mixed precision: {cfg.runtime.compute_dtype} "
                         "compute, f32 params/logits.")
@@ -331,6 +336,9 @@ def _dispatch(cfg, dm, device, compute_dtype, logger, step_timing,
               data_parallel: bool) -> FitResult:
     """The fit of the route ``cfg`` takes on ``dm``."""
     route, shape = _mesh_route(cfg, dm)
+    if route is not None or data_parallel:
+        refuse_graphgps(f"the mesh route {route or 'dp'!r}", cfg.mpnn,
+                        cfg.pe)
     if data_parallel:
         if route not in (None, "dp") or cfg.hscn is not None:
             raise ValueError("data_parallel takes an MPNN config "

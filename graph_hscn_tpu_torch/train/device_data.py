@@ -18,7 +18,10 @@ Layout (graph-major):
   edge_ok    [NG, e_slot]      bool
   y          [NG, C]           (graph tasks)  /  node_y [NG, slot, C]
   cluster    [NG, slot]        optional (HSCN)
-  eigvecs/eigvals [NG, slot, K] optional (PE)
+  eigvecs/eigvals [NG, slot, K] optional (PE), 0 where a pair is missing
+  eig_ok     [NG, K]           bool, the pairs each graph has (port-only:
+                               :func:`assemble` gives the missing ones
+                               back as NaN, as the host batches hold them)
   adj        [NG, slot, slot]  int16 adjacency counts (the cache), or None
 
 :func:`assemble` returns a slotted :class:`GraphBatch` so every model runs
@@ -48,7 +51,7 @@ ADJ_CACHE_BUDGET_BYTES = 512 * 1024 * 1024
 
 _ARRAY_FIELDS = ("nodes", "n_node", "edges_src", "edges_dst", "edge_ok",
                  "edge_feat", "y", "node_y", "cluster", "eigvecs", "eigvals",
-                 "adj")
+                 "eig_ok", "adj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +68,7 @@ class DeviceDataset:
     eigvecs: Any = None   # [NG, slot, K]
     eigvals: Any = None   # [NG, slot, K]
     adj: Any = None       # [NG, slot, slot] int16 per-graph adjacency
+    eig_ok: Any = None    # [NG, K] bool
     slot: int = 0
     e_slot: int = 0
 
@@ -125,6 +129,8 @@ class DeviceDataset:
                        if has_ev else None)
             eigvals = (np.zeros((NG, slot, g0.eigvals.shape[1]), np.float32)
                        if has_ev else None)
+            eig_ok = (np.zeros((NG, g0.eigvals.shape[1]), bool) if has_ev
+                      else None)
             for i, g in enumerate(graphs):
                 n, e = g.num_nodes, g.num_edges
                 if n > slot or e > e_slot:
@@ -147,11 +153,12 @@ class DeviceDataset:
                 if has_ev:
                     eigvecs[i, :n] = np.nan_to_num(g.eigvecs)
                     eigvals[i, :n] = np.nan_to_num(g.eigvals)
+                    eig_ok[i] = ~np.isnan(g.eigvals[0])
             ds = DeviceDataset(nodes=nodes, n_node=n_node, edges_src=src,
                                edges_dst=dst, edge_ok=ok, edge_feat=edge_feat,
                                y=y, node_y=node_y, cluster=cluster,
-                               eigvecs=eigvecs, eigvals=eigvals, slot=slot,
-                               e_slot=e_slot)
+                               eigvecs=eigvecs, eigvals=eigvals,
+                               eig_ok=eig_ok, slot=slot, e_slot=e_slot)
             if device is None:
                 return ds
             ds = ds.to(device)
@@ -242,6 +249,12 @@ def assemble(ds: DeviceDataset, idx: torch.Tensor) -> GraphBatch:
                if ds.eigvecs is not None else None)
     eigvals = (take(ds.eigvals).reshape(B * slot, -1)
                if ds.eigvals is not None else None)
+    if ds.eig_ok is not None:
+        # The missing pairs of real nodes NaN again; padding rows stay 0.
+        gone = ((~take(ds.eig_ok))[:, None, :] & node_ok[:, :, None]
+                ).reshape(B * slot, -1)
+        eigvecs = torch.where(gone, torch.nan, eigvecs)
+        eigvals = torch.where(gone, torch.nan, eigvals)
     # Cached adjacency: one block gather and cast instead of the per-step
     # scatter (ops/dense.build_dense_adj); dummy slots zeroed so no phantom
     # edges reach the model.

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from graph_hscn_tpu_torch.data.structures import GraphBatch
+from graph_hscn_tpu_torch.models.gps import GraphMHA
 from graph_hscn_tpu_torch.train.device_data import (DeviceDataset,
                                                     epoch_permutation,
                                                     make_epoch_fn,
@@ -41,8 +42,9 @@ from graph_hscn_tpu_torch.train.loss import criterion
 from graph_hscn_tpu_torch.train.metrics import (COUNT_METRICS, METRICS,
                                                 sum_step_counts)
 from graph_hscn_tpu_torch.train.optimizers import build_optimizer
-from graph_hscn_tpu_torch.utils.profiling import (check_nans, set_epoch,
-                                                  span, training_state)
+from graph_hscn_tpu_torch.utils.profiling import (check_nans, count,
+                                                  set_epoch, span,
+                                                  training_state)
 
 
 def is_eval_epoch(epoch: int, max_epochs: int, eval_period: int) -> bool:
@@ -194,6 +196,25 @@ def _fit_loop_body(training_cfg, logger, train_epoch, evaluate,
                     % training_cfg.checkpoint_every == 0):
                 checkpointer.save_latest(get_state(), epoch)
     return best_loss, history, stopped, epochs_run
+
+
+def count_attention_pairs(model: torch.nn.Module, ds, train_ids,
+                          batch_size: int) -> None:
+    """Counters of a train epoch's attention over ``ds``, counted once at
+    set-up, for a model with a :class:`GraphMHA` (nothing without): the
+    sum of the squared node counts of the graphs ``train_ids``
+    (``gps.attn.pairs_real``) and the pairs the attention scores over the
+    epoch's rows of ``batch_size`` slots (``gps.attn.pairs_computed``,
+    ``GraphMHA.pairs_computed``)."""
+    attn = next((m for m in model.modules() if isinstance(m, GraphMHA)),
+                None)
+    if attn is None:
+        return
+    n = ds.n_node.cpu().numpy()[np.asarray(train_ids)].astype(np.int64)
+    blocks = np.zeros(-(-len(n) // batch_size) * batch_size, np.int64)
+    blocks[:len(n)] = n
+    count("gps.attn.pairs_real", int((blocks ** 2).sum()))
+    count("gps.attn.pairs_computed", attn.pairs_computed(blocks, ds.slot))
 
 
 def make_train_step(model: torch.nn.Module, opt, loss_fn: str,
@@ -501,6 +522,7 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     eval_perms = {"val": split_perm("val", 0, False),
                   "test": split_perm("test", 0, False)}
     max_rows = max(-(-n // batch_size) for n in counts.values())
+    count_attention_pairs(model, ds, split_ids["train"], batch_size)
     train_epoch, eval_epoch = make_epoch_fn(
         model, opt, ds, batch_size, max_rows, training_cfg.loss_fn,
         node_level=node_level, compat_sigmoid_score=compat_sigmoid_score,

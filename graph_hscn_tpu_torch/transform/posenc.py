@@ -14,18 +14,32 @@ keep the ``max_freqs`` smallest eigenpairs -> normalize the eigenvectors
 - On the device, batched: :func:`batched_eigh`, ``torch.linalg.eigh`` of
   dense per-graph blocks.
 
-:func:`attach_posenc` then applies SignNet.  With ``frozen_random=True``
+:func:`attach_posenc` computes them for every graph (the ``setup.posenc``
+span) and then applies SignNet.  With ``frozen_random=True``
 (the reference's quirk #6, train.py:29-51) a randomly initialized, frozen
 SignNet is mapped once over the dataset, on the run's device with no
-gradient, and its output becomes the node features.
+gradient, and its output becomes the node features.  With ``pe.encoder:
+lappe`` the stats stay on the graphs for GraphGPS's LapPE inside the model.
+
+Port-only: for a dataset read from a file (``DataModule.source``) the
+stats are computed once and kept beside it
+(``<name>.posenc-<key>.pt``, :func:`cache_path`: keyed by the file's
+bytes and the PE settings), as GraphGPS's ``pre_transform`` keeps them in
+its processed dataset; a later run reads them back.
 """
 
 from __future__ import annotations
+
+import hashlib
+import json
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from graph_hscn_tpu_torch.data.batching import GraphData, iter_batches
+from graph_hscn_tpu_torch.utils.profiling import span
 
 
 def _sym_laplacian(g: GraphData, norm: str | None = "sym") -> np.ndarray:
@@ -210,20 +224,95 @@ def apply_frozen_signnet(dm, encoder, device: torch.device | str) -> None:
     dm.num_features = encoder.dim_emb
 
 
+def cache_path(source: str | Path, pe_cfg) -> Path:
+    """Where the eigen stats of the dataset file ``source`` under
+    ``pe_cfg``'s settings are kept: beside it, named by a hash of the
+    file's bytes and the settings."""
+    source = Path(source)
+    digest = hashlib.sha256()
+    with open(source, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            digest.update(chunk)
+    key = json.dumps({"data": digest.hexdigest(),
+                      "max_freqs": int(pe_cfg.eigen_max_freqs),
+                      "eigvec_norm": pe_cfg.eigvec_norm,
+                      "laplacian_norm": pe_cfg.eigen_laplacian_norm},
+                     sort_keys=True)
+    name = hashlib.sha256(key.encode()).hexdigest()[:16]
+    return source.with_name(f"{source.stem}.posenc-{name}.pt")
+
+
+def _write_stats(path: Path, graphs: list) -> None:
+    """Each graph's eigvals row [G, K] and the eigvecs [sum n, K],
+    written whole or not at all."""
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    torch.save({"eigvals": torch.from_numpy(
+                    np.stack([g.eigvals[0] for g in graphs])),
+                "eigvecs": torch.from_numpy(
+                    np.concatenate([g.eigvecs for g in graphs])),
+                "num_nodes": torch.tensor([g.num_nodes for g in graphs])},
+               tmp)
+    os.replace(tmp, path)
+
+
+def _read_stats(path: Path, graphs: list) -> list | None:
+    """``graphs`` with the kept stats, or None where the file holds other
+    graphs."""
+    kept = torch.load(path, weights_only=True)
+    n = kept["num_nodes"].tolist()
+    if n != [g.num_nodes for g in graphs]:
+        return None
+    evals, evecs = kept["eigvals"].numpy(), kept["eigvecs"].numpy()
+    ptr = np.concatenate([[0], np.cumsum(n)])
+    return [g.replace(eigvals=np.broadcast_to(evals[i], (g.num_nodes,
+                                                         evals.shape[1])
+                                              ).copy(),
+                      eigvecs=evecs[ptr[i]:ptr[i + 1]])
+            for i, g in enumerate(graphs)]
+
+
+def posenc_stats(dm, pe_cfg, logger, device: torch.device | str = "cpu"
+                 ) -> None:
+    """Eigen stats on every graph of ``dm``: read from the file kept
+    beside ``dm.source`` (:func:`cache_path`), else computed and, for a
+    dataset read from a file, kept there (a directory that cannot be
+    written keeps nothing).  The ``setup.posenc`` span."""
+    with span("setup.posenc"):
+        path = cache_path(dm.source, pe_cfg) if dm.source else None
+        if path is not None and path.exists():
+            graphs = _read_stats(path, dm.graphs)
+            if graphs is not None:
+                logger.info(f"Laplacian eigen stats read from {path}")
+                dm.graphs = graphs
+                return
+        logger.info("Precomputing Laplacian eigen stats for all graphs...")
+        dm.apply_transform(lambda g: compute_posenc_stats(
+            g, max_freqs=pe_cfg.eigen_max_freqs,
+            eigvec_norm=pe_cfg.eigvec_norm,
+            laplacian_norm=pe_cfg.eigen_laplacian_norm, device=device))
+        if path is not None:
+            try:
+                _write_stats(path, dm.graphs)
+            except OSError as err:
+                logger.info(f"Eigen stats not kept ({err})")
+
+
 def attach_posenc(dm, pe_cfg, logger, frozen_random: bool = True,
                   seed: int = 0, device: torch.device | str = "cpu") -> None:
-    """Eigen stats for every graph, then SignNet.
+    """Eigen stats for every graph (:func:`posenc_stats`), then SignNet.
 
     frozen_random=True (reference quirk #6): a random SignNet runs once
     with no gradient as a dataset transform on ``device``; node features
     become [Linear(x) | PE], ``dim_emb`` wide.
-    frozen_random=False: the eigen fields stay on the batches for the
-    trainable SignNet inside the model (``models/encoded.py``).
+    frozen_random=False, or ``pe.encoder: lappe``: the eigen fields stay on
+    the batches for the trainable SignNet inside the model
+    (``models/encoded.py``), or GraphGPS's LapPE
+    (``models/encoders.py``).
     """
-    logger.info("Precomputing Laplacian eigen stats for all graphs...")
-    dm.apply_transform(lambda g: compute_posenc_stats(
-        g, max_freqs=pe_cfg.eigen_max_freqs, eigvec_norm=pe_cfg.eigvec_norm,
-        laplacian_norm=pe_cfg.eigen_laplacian_norm, device=device))
+    posenc_stats(dm, pe_cfg, logger, device)
+    if pe_cfg.encoder == "lappe":
+        logger.info("PE stats attached for the LapPE encoder.")
+        return
     if not frozen_random:
         logger.info("PE stats attached; SignNet trains end-to-end.")
         return

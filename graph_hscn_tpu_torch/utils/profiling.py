@@ -7,6 +7,10 @@
   (name, fit epoch) pair (:func:`span_totals`); while a
   ``torch.profiler`` records, also a ``record_function`` range, so that
   the spans lie on the profiler's clock beside the device operations.
+- :func:`count`: the port's counters, totals a (name, fit epoch) beside
+  the spans' (:func:`counter_totals`): what the host knows of the work it
+  issues (a GPS train epoch's attention pairs, at set-up), counted with
+  no device sync and never inside a captured step.
 - :func:`trace`: a ``torch.profiler`` trace of a block (CPU activities,
   and on the card CUDA activities through CUPTI, the kernels inside a
   replayed CUDA graph among them), written on exit into the directory as a
@@ -207,6 +211,26 @@ def span_totals() -> dict[tuple[str, int | None], dict[str, int]]:
 
 
 def reset_spans() -> None:
-    """Empty the registry."""
+    """Empty the registry, the counters' too."""
     with _totals_lock:
         _totals.clear()
+        _counters.clear()
+
+
+# The counters: (name, epoch) -> total.
+_counters: dict[tuple[str, int | None], int] = {}
+
+
+def count(name: str, value: int) -> None:
+    """Add ``value`` to counter ``name`` under the fit epoch the call is
+    in (:func:`set_epoch`).  Host arithmetic alone: call it with numbers
+    the host holds, outside any captured step."""
+    key = (name, _epoch)
+    with _totals_lock:
+        _counters[key] = _counters.get(key, 0) + int(value)
+
+
+def counter_totals() -> dict[tuple[str, int | None], int]:
+    """A snapshot of the counters: {(name, epoch): total}."""
+    with _totals_lock:
+        return dict(_counters)
