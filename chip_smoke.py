@@ -43,6 +43,15 @@ Phases; any failure exits non-zero:
                  t_order), and a batch with empty rows; the library call is
                  torch.segment_reduce on the rows laid out beforehand,
                  checked against the plain version too;
+               - [graph_attn] GraphMHA's attention at the peptides_func_gps
+                 cell's shape (128 graphs of the cell's node counts, slot
+                 448, 4 heads of 24, dropout 0.5 from the program's own
+                 [128, 4, 448, 448] draw): forward and backward kernels
+                 against the plain version in float64, timed warm beside
+                 the draw, the plain version's forward and forward plus
+                 backward, and scaled_dot_product_attention with the same
+                 key mask and rate (its own bits) as the library yardstick,
+                 and the bound of the real pairs;
                - [hbm] csr_spmm forward and transpose and edge_sddmm at F=128
                  on the 142 x 142 and 226 x 226 lattices (N=20164 and 51076),
                  the sizes at which the TPU takes its HBM-streamed kernels
@@ -104,9 +113,10 @@ Phases; any failure exits non-zero:
                GatedGCN: 20 segment_reduce a train step, 8 an eval batch;
                VOC sparse HSCN: 6 csr_spmm a train step, 3 an eval batch;
                sparse GIN: 5 csr_spmm a train step (3 forwards, 2
-               transposes), 3 an eval batch; the unfused device-dataset
-               configs, GPS and the shipped HSCN configs: none; no launch
-               while clustering).  The device-dataset configs (peptides,
+               transposes), 3 an eval batch; GPS: one graph_attn a layer in
+               a train step and an eval batch, one graph_attn_bwd a layer
+               in a train step; the unfused device-dataset configs and the
+               shipped HSCN configs: none; no launch while clustering).  The device-dataset configs (peptides,
                GIN, GPS, the shipped VOC GCN, the shipped HSCN) take the
                captured route: each train, eval
                and clustering step captured once as a CUDA graph and
@@ -125,7 +135,7 @@ Phases; any failure exits non-zero:
                three GPS paths (device busy time, idle share, device
                operations, kernels by time; VOC GCN, GAT, HSCN and sparse
                GIN: their kernels' and the gathers' device time a step;
-               GPS: the softmax, LayerNorm, matmul, elementwise and
+               GPS: the graph_attn, LayerNorm, matmul, elementwise and
                reduction kernels' time);
                on the device-dataset paths the replayed step beside the
                eager one, then the replays back to back under CUDA events,
@@ -1043,6 +1053,132 @@ def phase_gatedgcn_kernels():
              **_timing(record, worst)}]
 
 
+def graph_attn_bound(n_nodes, nh: int, hd: int, backward: bool) -> tuple:
+    """The work of graph_attn (or its backward) at the real pairs of graphs
+    of ``n_nodes`` nodes, float32: (bytes, flops).  Flops: 4 * hd a real
+    pair and head forward (the score, its share of P V), 10 * hd backward
+    (the score again, dA, dV, dQ, dK).  Bytes: the real rows of q, k, v
+    read and out written, the draw read and the keep bits written at the
+    real pairs, lse written (forward); q, k, v, out, dO read and dq, dk, dv
+    written, the keep bits and lse read, D written and read (backward)."""
+    n = np.asarray(n_nodes, np.int64)
+    pairs = float((n ** 2).sum()) * nh
+    rows = float(n.sum()) * nh
+    if backward:
+        return 8 * rows * hd * 4 + pairs / 8 + 3 * rows * 4, 10 * hd * pairs
+    return 4 * rows * hd * 4 + pairs * 4 + pairs / 8 + rows * 4, \
+        4 * hd * pairs
+
+
+def phase_graph_attn_kernels():
+    """[graph_attn] GraphMHA's attention (graph_attn, graph_attn_bwd) at the
+    peptides_func_gps cell's shape: 128 graphs of the cell's node counts
+    (the generator's), slot 448, 4 heads of 24, dropout 0.5 from a
+    [128, 4, 448, 448] draw.  Kernels against the plain version in float64
+    with the same bits (1e-5 * max|ref|, the output at real query rows,
+    every gradient); timed warm (the draw is 8x the L2): each kernel, the
+    draw, the plain version's forward (its draw in it) and forward plus
+    backward in float32, and scaled_dot_product_attention with the same
+    key mask and rate (its own bits) as the library yardstick, forward and
+    forward plus backward.  Returns the kernels' records (without launch
+    counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from graph_hscn_tpu_torch.data.synthetic import make_peptides_func
+    from graph_hscn_tpu_torch.ops.cuda.graph_attn_kernel import (
+        extent, graph_attention_plain, graph_attn, graph_attn_bwd)
+
+    G, S, nh, hd, rate = 128, 448, 4, 24, 0.5
+    scale = 1.0 / (1.0 - rate)
+    n_nodes = [g.num_nodes for g in make_peptides_func(num_graphs=G, seed=0)]
+    mask = (torch.arange(S)[None, :]
+            < torch.tensor(n_nodes)[:, None]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, grad = (torch.randn(G, S, nh, hd, device="cuda", generator=gen)
+                     for _ in range(4))
+    grad = grad * mask[:, :, None, None]
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(7)
+
+    bits = torch.rand((G, nh, S, S), device="cuda", generator=seeded())
+    ext = extent(mask)
+    out, lse, keep = graph_attn(q, k, v, mask, ext, bits, rate, scale)
+    got = (out, *graph_attn_bwd(q, k, v, out, grad, mask, ext, lse, keep,
+                                scale))
+    ins = [t.double().requires_grad_(True) for t in (q, k, v)]
+    ref = graph_attention_plain(*ins, mask, rate, True, seeded())
+    ref.backward(grad.double())
+    ref = (ref.detach(), *(t.grad for t in ins))
+    del ins
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        if name == "out":
+            a, b = a[mask], b[mask]
+        err = float((a.double() - b).abs().max())
+        tol = 1e-5 * max(float(b.abs().max()), 1e-6)
+        if not a.isfinite().all() or err > tol:
+            fail(f"graph_attn {name}: max |err| {err:.3e} > tolerance "
+                 f"{tol:.3e}")
+        errs.append(err)
+    del ref
+    fwd_ms, fwd_host = time_ms(lambda: graph_attn(q, k, v, mask, ext, bits,
+                                                  rate, scale))
+    bwd_ms, bwd_host = time_ms(lambda: graph_attn_bwd(
+        q, k, v, out, grad, mask, ext, lse, keep, scale))
+    draw_ms, _ = time_ms(lambda: torch.rand((G, nh, S, S), device="cuda",
+                                            generator=gen))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    plain_fwd, _ = time_ms(lambda: graph_attention_plain(
+        q, k, v, mask, rate, True, gen), iters=20, warmup=3)
+    plain_both, _ = time_ms(lambda: graph_attention_plain(
+        qg, kg, vg, mask, rate, True, gen).backward(grad), iters=20,
+        warmup=3)
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    heads_g = [t.transpose(1, 2) for t in (qg, kg, vg)]
+    key_mask = mask[:, None, None, :]
+    lib_fwd, why = library_ms(lambda: F.scaled_dot_product_attention(
+        *heads, attn_mask=key_mask, dropout_p=rate))
+    lib_both, _ = library_ms(lambda: F.scaled_dot_product_attention(
+        *heads_g, attn_mask=key_mask, dropout_p=rate).backward(
+            grad.transpose(1, 2)))
+    records = []
+    for name, src, ms, host, plain, lib, backward, err in (
+            ("graph_attn", "graph_attn.cu", fwd_ms, fwd_host, plain_fwd,
+             lib_fwd, False, errs[0]),
+            ("graph_attn_bwd", "graph_attn_bwd.cu", bwd_ms, bwd_host,
+             plain_both - plain_fwd,
+             None if lib_both is None else lib_both - lib_fwd, True,
+             max(errs[1:]))):
+        nbytes, ops = graph_attn_bound(n_nodes, nh, hd, backward)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        print(f"[graph_attn] {name:14s} G={G} S={S} nh={nh} hd={hd} rate "
+              f"{rate} float32 err {err:.2e} device, warm L2: kernel "
+              f"{ms * 1e3:8.2f} us  plain {plain * 1e3:9.2f} us  bound "
+              f"{b_ms * 1e3:6.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP)  library "
+              + (f"{lib * 1e3:9.2f} us" if lib is not None
+                 else f"n/a ({why})")
+              + f"; host a call {host * 1e3:6.2f} us", flush=True)
+        records.append({"name": name, "route": "cuda",
+                        "source": f"graph_hscn_tpu_torch/csrc/{src}",
+                        "replaces": "none (the JAX package's attention is "
+                                    "XLA: graph_hscn_tpu/models/gps.py)",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib})
+    print(f"[graph_attn] the draw (torch.rand [{G}, {nh}, {S}, {S}]) "
+          f"{draw_ms * 1e3:.2f} us; plain forward (draw in it) "
+          f"{plain_fwd * 1e3:.2f} us, forward and backward "
+          f"{plain_both * 1e3:.2f} us; library forward "
+          + (f"{lib_fwd * 1e3:.2f} us, forward and backward "
+             f"{lib_both * 1e3:.2f} us" if lib_fwd is not None
+             and lib_both is not None else f"n/a ({why})"), flush=True)
+    return records
+
+
 def phase_hbm():
     """csr_spmm (forward and transpose) and edge_sddmm at F = 128 on the
     square 4-neighbour lattices at which the TPU routes the SpMM to its
@@ -1272,16 +1408,8 @@ def phase_gin_kernels() -> None:
 
 def all_kernels():
     """Every kernel wrapper of the port, each with its launch counter."""
-    from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import (sddmm_mh,
-                                                                spmm_mh)
-    from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import edge_sddmm
-    from graph_hscn_tpu_torch.ops.cuda.segment_reduce_kernel import (
-        segment_reduce)
-    from graph_hscn_tpu_torch.ops.cuda.spmm_kernel import csr_spmm
-    from graph_hscn_tpu_torch.ops.fused_gcn import (fused_gcn_bwd,
-                                                    fused_gcn_fwd)
-    return (csr_spmm, edge_sddmm, fused_gcn_fwd, fused_gcn_bwd, spmm_mh,
-            sddmm_mh, segment_reduce)
+    from graph_hscn_tpu_torch.train.capture import counted_kernels
+    return counted_kernels()
 
 
 def load_with(path: Path, changes: dict | None = None):
@@ -1502,6 +1630,15 @@ def gin_sparse_launches(cfg, steps, evals):
 
 def fused_launches(cfg, steps, evals):
     return {"fused_gcn_fwd": steps + evals, "fused_gcn_bwd": steps}
+
+
+def gps_launches(cfg, steps, evals):
+    """A GPS on the device route: one graph_attn a layer in a train step
+    and an eval batch, one graph_attn_bwd (its dQ and dK/dV kernels) a
+    layer in a train step."""
+    layers = cfg.mpnn.num_layers
+    return {"graph_attn": layers * (steps + evals),
+            "graph_attn_bwd": layers * steps}
 
 
 def no_launches(cfg, steps, evals):
@@ -2155,13 +2292,13 @@ def route_optimizer(params, cfg, n_train: int):
         capturable=True)
 
 
-# The GPS step's stock-op groups: the attention's softmax, every LayerNorm,
-# every matmul (cuBLAS and CUTLASS gemms: the attention's batched ones and
-# the Dense layers'), every kernel of PyTorch's elementwise_kernel
-# templates (pointwise ops: the mask bias, the scaling, activations, the
-# optimizer's; and the index gathers built on them) and every reduction
-# (its reduce_kernel template).
-GPS_FOCUS = {"softmax (forward, backward)": ("softmax",),
+# The GPS step's groups: the attention's kernels (graph_attn, forward and
+# backward), every LayerNorm, every matmul (cuBLAS and CUTLASS gemms: the
+# Dense layers'), every kernel of PyTorch's elementwise_kernel templates
+# (pointwise ops: the dropout draws, activations, the optimizer's; and the
+# index gathers built on them) and every reduction (its reduce_kernel
+# template).
+GPS_FOCUS = {"graph_attn (forward, backward)": ("graph_attn",),
              "LayerNorm (forward, backward)": ("layer_norm", "GammaBeta"),
              "gemm (all matmuls)": ("gemm",),
              "elementwise (pointwise and index kernels)":
@@ -4034,7 +4171,8 @@ def main() -> int:
         kink_study(int(sys.argv[2]))
         return 0
     kernels = (phase_kernels() + phase_fused_kernels(build_logs)
-               + phase_gat_kernels() + phase_gatedgcn_kernels())
+               + phase_gat_kernels() + phase_gatedgcn_kernels()
+               + phase_graph_attn_kernels())
     phase_hbm()
     phase_hscn_kernels()
     phase_gin_kernels()
@@ -4064,9 +4202,10 @@ def main() -> int:
     capture_run(GIN, no_launches)
     gin = train_run(GIN, gin_sparse_launches, changes=GIN_SPARSE)[0]
     launches["csr_spmm"] += gin["csr_spmm"]
-    capture_run(GPS_FUNC, no_launches)
-    capture_run(GPS_STRUCT, no_launches)
-    capture_run(GPS_VOC, no_launches)
+    for path in (GPS_FUNC, GPS_STRUCT, GPS_VOC):
+        for k, n in capture_run(path, gps_launches).items():
+            if k.startswith("graph_attn"):
+                launches[k] += n
     capture_run(PEPTIDES_STRUCT_GCN, no_launches)
     phase_lr_schedule(GPS_STRUCT)
     phase_profile(CONFIG, "VOC sparse GCN", focus=GCN_FOCUS)
@@ -4100,7 +4239,8 @@ def main() -> int:
     # runs' launches count with the main path's.
     phase_resume(PEPTIDES, no_launches, "peptides")
     voc, voc_fit, voc_cfg = phase_resume(CONFIG, voc_gcn_launches, "voc")
-    phase_resume(GPS_STRUCT, no_launches, "gps_struct", check_lr=True)
+    gps_resumed = phase_resume(GPS_STRUCT, gps_launches, "gps_struct",
+                               check_lr=True)[0]
     fused_dir = {"training.checkpoint_dir": str(SCRATCH / "fused")}
     shutil.rmtree(SCRATCH / "fused", ignore_errors=True)
     fused_fit, fused_res = train_run(PEPTIDES_FUSED, fused_launches,
@@ -4130,7 +4270,8 @@ def main() -> int:
     support = phase_support()
     print(f"[time] [support]: {time.perf_counter() - t0:.1f} s wall",
           flush=True)
-    for counts in (voc, fused_fit, *evals, ep, dp, hybrid, loader, support):
+    for counts in (voc, fused_fit, *evals, ep, dp, hybrid, loader, support,
+                   gps_resumed):
         for kernel, n in counts.items():
             launches[kernel] += n
     for k in kernels:

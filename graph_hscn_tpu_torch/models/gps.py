@@ -10,9 +10,11 @@ Layer (pre-norm), as the JAX ``GPSLayer`` (gps.py:83-126):
   out      = h + Drop(Dense(gelu(Dense_2H(LN2(h)))))       gelu: tanh form
 
 The global attention runs over the slotted layout's [G, slot, H] blocks
-(a batched masked softmax-matmul, stock torch ops: the JAX package runs it
-in XLA with no Pallas kernel).  So GPS needs slotted batches; without
-slots it raises, as JAX does.  The GCN local module takes the dense
+(a masked softmax-matmul a graph: on the card the hand-written kernels of
+``ops/cuda/graph_attn_kernel.py`` over each graph's real nodes, on the CPU
+their plain version; the JAX package runs it in XLA with no Pallas
+kernel).  So GPS needs slotted batches; without slots it raises, as JAX
+does.  The GCN local module takes the dense
 adjacency normalized once a forward (``GCNConv.normalize_dense``, the
 function JAX's layer applies to it each layer); the GatedGCN one takes no
 plan on slotted batches, so its segment sums are plain ``index_add_``.
@@ -43,8 +45,6 @@ the edge encoder).  In a layer: ``norm_local``/``norm_global``/
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 from torch import nn
@@ -59,22 +59,21 @@ from graph_hscn_tpu_torch.models.layers import (ACTIVATIONS, BatchNorm, Dense,
                                                GCNConv, GatedGCNConv,
                                                LayerNorm, dropout,
                                                lecun_normal_)
+from graph_hscn_tpu_torch.ops.cuda import graph_attn_kernel
 from graph_hscn_tpu_torch.ops.dense import resolve_dense_adj
 from graph_hscn_tpu_torch.ops.segment import graph_readout_mean
-
-# The additive bias on padding keys: finite, so that a block with no real
-# node (the dummy graph slot) softmaxes to uniform weights, not NaN.
-NEG_INF = -1e9
-
 
 class GraphMHA(nn.Module):
     """Multi-head self-attention over per-graph slot blocks, the JAX
     ``GraphMHA`` (gps.py:40-80).
 
     ``xb [G, S, H]``, ``mask [G, S]`` (True = real node).  Padding slots
-    are excluded as keys by an additive ``NEG_INF`` bias and zeroed as
-    queries on the way out; the softmax runs in float32 whatever the
-    compute dtype.
+    are excluded as keys and zeroed as queries on the way out; the softmax
+    runs in float32 whatever the compute dtype.  The attention between the
+    projections is :func:`~graph_hscn_tpu_torch.ops.cuda.graph_attn_kernel.
+    graph_attention`: the ``graph_attn`` kernels on the card, which score
+    only each graph's tiles up to its last real node, and on the CPU the
+    plain version (an additive ``NEG_INF`` key bias over whole blocks).
 
     Parameters: ``query``, ``key``, ``value`` (``Dense`` H -> nh*hd; flax
     ``DenseGeneral`` kernels [H, nh, hd], biases [nh, hd]) and ``out``
@@ -82,9 +81,10 @@ class GraphMHA(nn.Module):
     the flattened [in, nh*hd] shape, as flax's ``DenseGeneral`` is.
 
     ``dropout`` (port-only, ``mp.attn_dropout``): in training the weights
-    [G, nh, S, S] after the softmax go through :func:`dropout`, bits from
-    the forward's ``generator``, as ``torch.nn.MultiheadAttention``'s
-    ``dropout`` does; at 0 nothing is drawn.
+    [G, nh, S, S] after the softmax are dropped as :func:`dropout` drops
+    them, bits [G, nh, S, S] from the forward's ``generator`` on both
+    routes, as ``torch.nn.MultiheadAttention``'s ``dropout`` does; at 0
+    nothing is drawn.
     """
 
     def __init__(self, hidden: int, num_heads: int,
@@ -111,20 +111,23 @@ class GraphMHA(nn.Module):
             return dense(xb).reshape(G, S, nh, hd)
 
         q, k, v = proj(self.query), proj(self.key), proj(self.value)
-        scores = torch.einsum("gqhd,gkhd->ghqk", q, k) / math.sqrt(hd)
-        bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :]
-        attn = torch.softmax((scores + bias.to(scores.dtype)).float(), -1)
-        attn = dropout(attn, self.dropout, self.training, generator)
-        out = torch.einsum("ghqk,gkhd->gqhd", attn.to(v.dtype), v)
+        out = graph_attn_kernel.graph_attention(q, k, v, mask, self.dropout,
+                                                self.training, generator)
         out = self.out(out.reshape(G, S, nh * hd))
         return torch.where(mask[:, :, None], out, 0.0)
 
     @staticmethod
-    def pairs_computed(n_node: np.ndarray, slot: int) -> int:
+    def pairs_computed(n_node: np.ndarray, slot: int, on_card: bool) -> int:
         """The query-key pairs :meth:`forward` scores a head over blocks
-        of ``slot`` rows holding ``n_node`` real nodes each: every pair of
-        a block, the padding's too."""
-        return len(n_node) * slot * slot
+        of ``slot`` rows holding ``n_node`` real nodes each, first: on the
+        card (``on_card``) the kernels' visited tiles, sum of
+        (ceil(n / TILE) * TILE)^2; on the CPU every pair of a block, the
+        padding's too."""
+        if not on_card:
+            return len(n_node) * slot * slot
+        tile = graph_attn_kernel.TILE
+        rows = -(-np.asarray(n_node, np.int64) // tile) * tile
+        return int((rows ** 2).sum())
 
 
 class GPSLayer(nn.Module):

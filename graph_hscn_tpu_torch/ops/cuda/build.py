@@ -61,6 +61,14 @@ SIGNATURES = {
     # graphs, slot, keep_scale, the plan (as above), stream
     "fused_gcn_bwd": (_P, _P, _I, _PP, _PP, _P, _P, _P, _P, _IP, _I, _I, _I,
                       _F, _I, _I, _I, _I, _I, _P),
+    # q, k, v, bf16, mask, extent, bits (or null), out, lse, keep (or null),
+    # G, S, nh, hd, scale, rate, keep_scale, stream
+    "graph_attn": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _F, _F, _F, _P),
+    # q, k, v, out, grad, bf16, mask, extent, lse, keep (or null), delta,
+    # dq, dk, dv, G, S, nh, hd, scale, keep_scale, stream
+    "graph_attn_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _F, _F, _P),
 }
 # Further entry points of a kernel's library: {library: {function: (argument
 # types)}}, each returning an int.

@@ -45,7 +45,7 @@ from graph_hscn_tpu_torch.parallel.sharded_gatedgcn import (GatedLinears,
                                                              gated_messages)
 from graph_hscn_tpu_torch.parallel.sharded_gcn import Affine
 
-NEG_INF = -1e9   # the additive key-mask bias (models/gps.py's)
+NEG_INF = -1e9   # the additive key-mask bias (GraphMHA's plain version's)
 
 
 class _RingShift(torch.autograd.Function):

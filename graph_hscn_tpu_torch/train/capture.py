@@ -24,6 +24,8 @@ from typing import Callable, Iterable
 
 import torch
 
+from graph_hscn_tpu_torch.ops.cuda.graph_attn_kernel import (graph_attn,
+                                                           graph_attn_bwd)
 from graph_hscn_tpu_torch.ops.cuda.multihead_kernel import sddmm_mh, spmm_mh
 from graph_hscn_tpu_torch.ops.cuda.sddmm_kernel import edge_sddmm
 from graph_hscn_tpu_torch.ops.cuda.segment_reduce_kernel import (
@@ -36,7 +38,7 @@ def counted_kernels() -> tuple:
     """Every kernel wrapper of the port; each keeps a ``.launches`` count,
     one a launch of its kernel."""
     return (csr_spmm, edge_sddmm, fused_gcn_fwd, fused_gcn_bwd, spmm_mh,
-            sddmm_mh, segment_reduce)
+            sddmm_mh, segment_reduce, graph_attn, graph_attn_bwd)
 
 
 class ReplayCounts:

@@ -204,8 +204,9 @@ def count_attention_pairs(model: torch.nn.Module, ds, train_ids,
     set-up, for a model with a :class:`GraphMHA` (nothing without): the
     sum of the squared node counts of the graphs ``train_ids``
     (``gps.attn.pairs_real``) and the pairs the attention scores over the
-    epoch's rows of ``batch_size`` slots (``gps.attn.pairs_computed``,
-    ``GraphMHA.pairs_computed``)."""
+    epoch's rows of ``batch_size`` slots on the model's device
+    (``gps.attn.pairs_computed``, ``GraphMHA.pairs_computed``: the kernels'
+    visited tiles on the card, every pair on the CPU)."""
     attn = next((m for m in model.modules() if isinstance(m, GraphMHA)),
                 None)
     if attn is None:
@@ -213,8 +214,10 @@ def count_attention_pairs(model: torch.nn.Module, ds, train_ids,
     n = ds.n_node.cpu().numpy()[np.asarray(train_ids)].astype(np.int64)
     blocks = np.zeros(-(-len(n) // batch_size) * batch_size, np.int64)
     blocks[:len(n)] = n
+    on_card = attn.query.weight.device.type == "cuda"
     count("gps.attn.pairs_real", int((blocks ** 2).sum()))
-    count("gps.attn.pairs_computed", attn.pairs_computed(blocks, ds.slot))
+    count("gps.attn.pairs_computed",
+          attn.pairs_computed(blocks, ds.slot, on_card))
 
 
 def make_train_step(model: torch.nn.Module, opt, loss_fn: str,

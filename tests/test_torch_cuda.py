@@ -24,6 +24,13 @@ out a rounding point fails 1e-4 (tests/test_torch_fused_gcn.py,
 test_bf16_tolerance_catches_a_missing_rounding_point).
 segment_reduce in bfloat16 is held at rtol=1e-4, atol=1e-4*max|ref|: both
 sum the same exact bfloat16 values in float32, in another order.
+graph_attn (GraphMHA's attention) is held against its plain version run in
+float64 on the same inputs (and the same dropout bits): float32 sums in
+another order, rtol=1e-5, atol=1e-5*max|ref|, on the output at real query
+rows and on every gradient.  With bfloat16 inputs the kernels read the
+bfloat16 values exactly and sum in float32, and round each output once to
+bfloat16 (a relative step of 2^-8), and the backward reads the rounded
+output: rtol=atol/max|ref|=1e-2.
 """
 
 import numpy as np
@@ -1029,6 +1036,174 @@ def test_sparse_gin_on_the_card_matches_the_cpu():
     for ref, got in zip(outs["cpu"], outs["cuda"]):
         assert bool(got.isfinite().all())
         assert_close(got, ref, 1e-4)
+
+
+# --- graph_attn (GraphMHA's attention, ops/cuda/graph_attn_kernel.py) ----
+
+def attn_inputs(n_nodes, S, nh, hd, dtype=torch.float32, seed=0):
+    """q, k, v [G, S, nh, hd] on the card and the node mask [G, S]:
+    ``n_nodes`` real nodes a graph, first, or a given mask [G, S]."""
+    mask = (torch.as_tensor(n_nodes) if torch.is_tensor(n_nodes)
+            and n_nodes.dtype == torch.bool
+            else torch.arange(S)[None, :] < torch.as_tensor(n_nodes)[:, None])
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(mask.shape[0], S, nh, hd, generator=g).to(dtype)
+               .cuda() for _ in range(3))
+    return q, k, v, mask.cuda()
+
+
+def attn_both(q, k, v, mask, rate, training=True, seed=9):
+    """graph_attention on the card (the kernels) and its plain version in
+    float64, each from a CUDA generator seeded alike (the same bits), and
+    each backward of a cotangent zero on padding query rows (what GraphMHA's
+    mask after the output projection passes back): ((out, dq, dk, dv),
+    (out, dq, dk, dv)), the outputs zeroed on padding query rows."""
+    from graph_hscn_tpu_torch.ops.cuda.graph_attn_kernel import (
+        graph_attention, graph_attention_plain)
+    cot = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    cot = cot.cuda() * mask[:, :, None, None]
+    res = []
+    for fn, dtype in ((graph_attention, q.dtype),
+                      (graph_attention_plain, torch.float64)):
+        ins = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        out = fn(*ins, mask, rate, training, gen)
+        (out.float() * cot).sum().backward()
+        out = torch.where(mask[:, :, None, None], out, 0.0)
+        res.append((out.detach(), *(t.grad for t in ins)))
+    return res
+
+
+def assert_attn_close(got, ref, dtype):
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and bool(a.isfinite().all()), name
+        assert_close(a, b, tol)
+
+
+def cell_node_counts(graphs: int = 128):
+    """Node counts of the peptides_func_gps cell's graphs (the generator's
+    lognormal around 150 nodes, clipped to 8..444)."""
+    from graph_hscn_tpu_torch.data.synthetic import make_peptides_func
+    return [g.num_nodes for g in make_peptides_func(num_graphs=graphs,
+                                                    seed=0)]
+
+
+def test_graph_attn_matches_plain_at_the_cell_shape():
+    """The peptides_func_gps cell's attention: 128 graphs at slot 448, 4
+    heads of 24, dropout 0.5 in training, the cell's node counts; forward
+    and every gradient; one forward and one backward launch."""
+    need_card()
+    from graph_hscn_tpu_torch.ops.cuda.graph_attn_kernel import (
+        graph_attn, graph_attn_bwd)
+    before = (graph_attn.launches, graph_attn_bwd.launches)
+    q, k, v, mask = attn_inputs(cell_node_counts(), 448, 4, 24)
+    got, ref = attn_both(q, k, v, mask, 0.5)
+    assert_attn_close(got, ref, torch.float32)
+    assert (graph_attn.launches, graph_attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("hd,rate,training", [
+    (16, 0.0, True), (16, 0.2, False), (4, 0.1, True), (20, 0.3, True),
+    (64, 0.5, True), (40, 0.0, True)])
+def test_graph_attn_matches_plain_at_each_head_width(hd, rate, training):
+    """Head widths 16 (the shipped GPS configs, rate 0; and in eval), 4
+    (parallel/dryrun.py's), 20 and 40 (padded in registers), 64 (the
+    widest), on 12 graphs at slot 70 (a last tile of 6 rows)."""
+    need_card()
+    rng = np.random.default_rng(hd)
+    n = rng.integers(1, 71, size=12)
+    q, k, v, mask = attn_inputs(n, 70, 2, hd, seed=hd)
+    got, ref = attn_both(q, k, v, mask, rate, training)
+    assert_attn_close(got, ref, torch.float32)
+
+
+def test_graph_attn_odd_blocks_and_a_non_prefix_mask():
+    """An all-padding block (the dummy slot: output and gradients 0), a
+    full slot, a one-node graph, and a mask with holes (padding keys inside
+    visited tiles excluded exactly), dropout 0.5."""
+    need_card()
+    S = 96
+    mask = torch.arange(S)[None, :] < torch.tensor([[0], [S], [1], [50]])
+    holes = torch.rand(S, generator=torch.Generator().manual_seed(3)) < 0.6
+    mask = torch.cat([mask, holes[None, :]])
+    q, k, v, mask = attn_inputs(mask, S, 4, 24, seed=5)
+    got, ref = attn_both(q, k, v, mask, 0.5)
+    assert_attn_close(got, ref, torch.float32)
+    for t in got:
+        assert not t[0].any()
+
+
+def test_graph_attn_bfloat16():
+    """bfloat16 q, k, v (GraphMHA's compute dtype): read as such, softmax
+    and sums in float32, outputs rounded once; the cell's widths on 32
+    graphs, dropout 0.5."""
+    need_card()
+    q, k, v, mask = attn_inputs(cell_node_counts(32), 448, 4, 24,
+                                dtype=torch.bfloat16)
+    got, ref = attn_both(q, k, v, mask, 0.5)
+    assert_attn_close(got, ref, torch.bfloat16)
+
+
+def test_graph_attn_under_capture_and_replay():
+    """graph_attention's forward and backward captured as a CUDA graph with
+    its dropout generator registered: each replay gives what an eager call
+    from the same generator state gives, bit for bit (fixed sums, no
+    atomics), and draws new bits each replay."""
+    need_card()
+    from graph_hscn_tpu_torch.ops.cuda.graph_attn_kernel import (
+        graph_attention)
+    q, k, v, mask = attn_inputs(cell_node_counts(16), 448, 4, 24)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def step():
+        for t in ins:
+            t.grad = None
+        out = graph_attention(*ins, mask, 0.5, True, gen)
+        out.sum().backward()
+        return out
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()      # builds and loads the kernels outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = step()
+    gen.manual_seed(33)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([out.clone()] + [t.grad.clone() for t in ins])
+    assert not torch.equal(replays[0][0], replays[1][0])
+    gen.manual_seed(33)
+    for want in replays:
+        eager = step()
+        for a, b in zip([eager] + [t.grad for t in ins], want):
+            assert torch.equal(a, b)
+
+
+def test_graph_attn_refuses_what_the_kernels_do_not_take():
+    """A head wider than 64, mixed dtypes, a dropout rate of 1: ValueError
+    or TypeError, no launch."""
+    need_card()
+    from graph_hscn_tpu_torch.ops.cuda.graph_attn_kernel import (
+        extent, graph_attention, graph_attn)
+    before = graph_attn.launches
+    q, k, v, mask = attn_inputs([3, 4], 8, 1, 65)
+    with pytest.raises(ValueError, match="head width"):
+        graph_attn(q, k, v, mask, extent(mask))
+    q, k, v, mask = attn_inputs([3, 4], 8, 2, 8)
+    with pytest.raises(TypeError):
+        graph_attn(q, k.bfloat16(), v, mask, extent(mask))
+    with pytest.raises(ValueError, match="rate"):
+        graph_attention(q, k, v, mask, 1.0, True)
+    assert graph_attn.launches == before
 
 
 # --- the captured epoch (train/device_data.py:make_epoch_fn) ---------------

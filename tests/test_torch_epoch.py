@@ -291,7 +291,7 @@ def test_counted_kernels_are_the_port_wrappers():
     names = [k.__name__ for k in capture.counted_kernels()]
     assert names == ["csr_spmm", "edge_sddmm", "fused_gcn_fwd",
                      "fused_gcn_bwd", "spmm_mh", "sddmm_mh",
-                     "segment_reduce"]
+                     "segment_reduce", "graph_attn", "graph_attn_bwd"]
     assert all(isinstance(k.launches, int)
                for k in capture.counted_kernels())
 
