@@ -226,8 +226,8 @@ class ProductsInOrder(torch.overrides.TorchFunctionMode):
 
 def plain_reference(plain, a_hat, x, *rest):
     """``plain`` (:func:`fused_gcn_fwd_plain` or :func:`fused_gcn_bwd_plain`)
-    on these arguments, as the card tests and chip_smoke.py hold the
-    kernels to it (within 1e-5 * max|ref| an output in float32, 1e-4 in
+    on these arguments, as the card tests (tests/test_torch_cuda.py) hold
+    the kernels to it (within 1e-5 * max|ref| an output in float32, 1e-4 in
     bfloat16): as it is in float32, under :class:`ProductsInOrder` in
     bfloat16.
 

@@ -113,8 +113,8 @@ def run_experiment(cfg: ExperimentConfig, device=None, log_file=None,
                    data_parallel: bool = False) -> FitResult:
     """Train ``cfg`` on ``device``, routed as the JAX runner routes it.
     ``data_parallel`` (no config key) takes ``fit_dp`` even on one rank:
-    the yardstick that ``chip_smoke.py`` holds against the single-device
-    fit and ``parallel/compare_ranks.py`` against D ranks."""
+    the yardstick that ``parallel/compare_ranks.py`` holds D ranks
+    against."""
     # "on" without a launcher's variables raises here, before any work.
     launcher_env(cfg.runtime.multihost)
     device, compute_dtype = _setup_run(cfg, device)

@@ -498,11 +498,11 @@ def fit_on_device_dataset(model: torch.nn.Module, ds, split_ids: dict,
     outputs come back in one readback at the end.  ``capture``: None
     captures on a CUDA device; False runs the same steps (the same
     capturable optimizer) eagerly row by row, the yardstick that the card
-    tests and ``chip_smoke.py`` hold the captured fit against (no config
-    sets it).  A capture or replay that fails raises.  ``checkpointer``
-    as in :func:`fit`; the restore comes before the first row, so before
-    the steps are captured.  ``train_edges``: the train split's edges, the
-    epoch line's edge count.
+    tests (tests/test_torch_cuda.py) hold the captured fit against (no
+    config sets it).  A capture or replay that fails raises.
+    ``checkpointer`` as in :func:`fit`; the restore comes before the first
+    row, so before the steps are captured.  ``train_edges``: the train
+    split's edges, the epoch line's edge count.
     """
     device = torch.device(device)
     capture = resolve_capture(capture, device)

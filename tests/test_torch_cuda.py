@@ -1,5 +1,10 @@
-"""The port's CUDA kernels on the card, each against its plain PyTorch
-version (marker ``gpu``; each test skips where there is no CUDA card).
+"""The port on the card (marker ``gpu``; each test skips where there is no
+CUDA card): its CUDA kernels, each against its plain PyTorch version; the
+models that launch them against the CPU; the captured epoch against the
+eager one; and the runner's routes (run_experiment, run_eval, main
+--predict, the mesh routes on a 1-rank NCCL group) with their kernels'
+launches, checkpoints, traces and NaN guard.  The kernels' times are
+chip_smoke.py's.
 
 On a machine with the card, from the repository root (no JAX needed, hence
 no conftest):
@@ -11,11 +16,10 @@ spmm_mh in bfloat16 is held at rtol=1e-4, atol=1e-4*max|ref|: kernel and
 plain version round each term bf16(f32(x_j) * alpha) alike, while another
 rounding rule fails it (tests/test_torch_gat.py,
 test_bf16_tolerance_catches_a_missing_rounding_point).
-The fused GCN stack is held as chip_smoke.py's [fused] phase holds it:
-every output finite and within tol*max|ref| of its plain version, tol 1e-5
-in float32 and 1e-4 in bfloat16, the plain version run by
-graph_hscn_tpu_torch.ops.fused_gcn.plain_reference: in bfloat16 with its
-matrix products summed in order, the kernels' order.  Kernel and plain
+The fused GCN stack: every output finite and within tol*max|ref| of its
+plain version, tol 1e-5 in float32 and 1e-4 in bfloat16, the plain version
+run by graph_hscn_tpu_torch.ops.fused_gcn.plain_reference: in bfloat16
+with its matrix products summed in order, the kernels' order.  Kernel and plain
 version round the same float32 values to bfloat16 at the same points, so
 in that order every rounded output (hidden h, logits, dx) agrees bit for
 bit; cuBLAS picks its own order by shape, and a sum next to a rounding
@@ -32,6 +36,8 @@ bfloat16 values exactly and sum in float32, and round each output once to
 bfloat16 (a relative step of 2^-8), and the backward reads the rounded
 output: rtol=atol/max|ref|=1e-2.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -66,9 +72,30 @@ from graph_hscn_tpu_torch.ops.fused_gcn import (dropout_bits_plain,
 pytestmark = pytest.mark.gpu
 
 
+CONFIGS = Path(__file__).parents[1] / "configs"
+
+
 def need_card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
+
+
+def shipped_raw(name: str, changes: dict | None = None) -> dict:
+    """configs/<name>.yaml as the YAML's dict, with ``changes``
+    ({"section.field": value}, by the config object's names: ``mpnn`` for
+    the YAML's ``mp``) set."""
+    import yaml
+    raw = yaml.safe_load((CONFIGS / f"{name}.yaml").read_text())
+    for key, value in (changes or {}).items():
+        section, field = key.split(".")
+        raw.setdefault({"mpnn": "mp"}.get(section, section), {})[field] = value
+    return raw
+
+
+def shipped(name: str, changes: dict | None = None):
+    """The ExperimentConfig of :func:`shipped_raw`."""
+    from graph_hscn_tpu_torch.config.config import parse_config
+    return parse_config(shipped_raw(name, changes))
 
 
 def assert_close(got, ref, tol=1e-5):
@@ -271,24 +298,6 @@ def test_csr_kernels_take_views_that_are_not_16_byte_aligned(batch):
                  edge_sddmm_plain(x, x, p.row, p.col, p.num_edges))
 
 
-def test_run_experiment_on_the_card_launches_the_kernel():
-    need_card()
-    from pathlib import Path
-
-    from graph_hscn_tpu_torch.config.config import load_config
-    from graph_hscn_tpu_torch.runner import run_experiment
-    cfg = load_config(Path(__file__).parents[1] / "configs" / "GCN"
-                      / "voc_superpixels_GCN_sparse.yaml")
-    cfg.data.num_graphs = 24
-    cfg.mpnn.num_layers = 2
-    cfg.training.epochs = 1
-    before = csr_spmm.launches
-    result = run_experiment(cfg)
-    assert np.isfinite(result.history[0]["train_loss"])
-    assert csr_spmm.launches - before == (2 * 2 * result.num_train_steps
-                                          + 2 * result.num_eval_batches)
-
-
 # The GAT path's widths (H*C = 64, 84 and 8, C not a power of two) and
 # widths that reach every launch plan the kernels build (held so by
 # tests/test_torch_multihead_plan.py): one head of an odd width (one lane
@@ -473,28 +482,6 @@ def test_multihead_wrappers_refuse_what_the_kernels_do_not_take(batch):
         sddmm_mh(x, x, p.row, p.col, p.num_edges, 3)
     with pytest.raises(TypeError):
         sddmm_mh(x.half(), x, p.row, p.col, p.num_edges, 4)
-
-
-def test_run_experiment_gat_on_the_card_launches_the_kernels():
-    """The VOC GAT config, shrunk to 2 layers: a train step launches 4
-    spmm_mh and 3 sddmm_mh a layer, an eval batch 1 and 2."""
-    need_card()
-    from pathlib import Path
-
-    from graph_hscn_tpu_torch.config.config import load_config
-    from graph_hscn_tpu_torch.runner import run_experiment
-    cfg = load_config(Path(__file__).parents[1] / "configs" / "GAT"
-                      / "voc_superpixels_GAT_sparse.yaml")
-    cfg.data.num_graphs = 48
-    cfg.mpnn.num_layers = 2
-    cfg.training.epochs = 1
-    s0, d0 = spmm_mh.launches, sddmm_mh.launches
-    result = run_experiment(cfg)
-    assert np.isfinite(result.history[0]["train_loss"])
-    steps, evals = result.num_train_steps, result.num_eval_batches
-    assert steps > 0 and evals > 0
-    assert spmm_mh.launches - s0 == 2 * (4 * steps + evals)
-    assert sddmm_mh.launches - d0 == 2 * (3 * steps + 2 * evals)
 
 
 DIMS = (9, 16, 16, 10)        # peptides-func: F0 9, hidden 16, 10 classes
@@ -759,30 +746,6 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take():
             torch.zeros(2, 16, 16, device="cuda")] * 2})
 
 
-@pytest.mark.parametrize("config,fused", [
-    ("peptides_func_GCN_fused.yaml", True),
-    ("peptides_func_GCN.yaml", False)])
-def test_run_experiment_peptides_on_the_card(config, fused):
-    """Both peptides configs train on the device-resident dataset; the
-    fused one launches fused_gcn_fwd once a train step and an eval batch,
-    fused_gcn_bwd once a train step; the unfused one neither."""
-    need_card()
-    from pathlib import Path
-
-    from graph_hscn_tpu_torch.config.config import load_config
-    from graph_hscn_tpu_torch.runner import run_experiment
-    cfg = load_config(Path(__file__).parents[1] / "configs" / "GCN" / config)
-    cfg.data.num_graphs = 96
-    cfg.training.epochs = 1
-    f0, b0 = fused_gcn_fwd.launches, fused_gcn_bwd.launches
-    result = run_experiment(cfg)
-    assert np.isfinite(result.history[0]["train_loss"])
-    steps, evals = result.num_train_steps, result.num_eval_batches
-    assert steps > 0 and evals > 0
-    assert fused_gcn_fwd.launches - f0 == (steps + evals if fused else 0)
-    assert fused_gcn_bwd.launches - b0 == (steps if fused else 0)
-
-
 @pytest.mark.parametrize("f", [64, 21, 128, 130, 1])
 @pytest.mark.parametrize("side", ["receiver", "sender"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -878,27 +841,6 @@ def test_segment_reduce_refuses_what_the_kernel_does_not_take(batch):
                        p.row_ptr)
 
 
-def test_run_experiment_gatedgcn_on_the_card_launches_the_kernel():
-    """The VOC GatedGCN config, shrunk to 2 layers: a train step launches
-    5 segment_reduce a layer, an eval batch 2."""
-    need_card()
-    from pathlib import Path
-
-    from graph_hscn_tpu_torch.config.config import load_config
-    from graph_hscn_tpu_torch.runner import run_experiment
-    cfg = load_config(Path(__file__).parents[1] / "configs" / "GatedGCN"
-                      / "voc_superpixels_GatedGCN_sparse.yaml")
-    cfg.data.num_graphs = 48
-    cfg.mpnn.num_layers = 2
-    cfg.training.epochs = 1
-    before = segment_reduce.launches
-    result = run_experiment(cfg)
-    assert np.isfinite(result.history[0]["train_loss"])
-    steps, evals = result.num_train_steps, result.num_eval_batches
-    assert steps > 0 and evals > 0
-    assert segment_reduce.launches - before == 2 * (5 * steps + 2 * evals)
-
-
 @pytest.fixture(scope="module")
 def lattice():
     """The 142 x 142 lattice (N = 20,164, 80,088 edges), the size at which
@@ -984,55 +926,79 @@ def test_sparse_hscn_on_the_card_matches_the_cpu():
         assert_close(got, ref, 1e-4)
 
 
-def test_sparse_gin_on_the_card_matches_the_cpu():
-    """The peptides GIN config's model at full width (hidden 16, 3 layers)
-    on a 4-graph batch with its CSR plan (runtime.dense_path sparse): the
-    0/1 edge mask as csr_spmm's weights, 3 launches forward and 2
-    transposes backward (layer 0's input takes no gradient); logits and
-    every parameter gradient on the card within 1e-4*max|ref| of the
-    CPU's (the kernel's plain version), in eval mode (no dropout) and
-    under the config's ``matmul_precision: highest`` (GIN's unnormalised
-    sums give logits of ~100, which TF32's rounding of the Dense inputs
-    moves by ~4e-4 of their largest)."""
+# A sparse-batch config's model at full width and the kernels its forward
+# and backward launch a layer ({kernel: launches}, ``L`` layers): GIN on
+# sparse batches (the 0/1 edge mask as csr_spmm's weights; the transpose in
+# every layer but the first, whose input takes no gradient), and the VOC
+# sparse GCN, GAT (with self loops) and GatedGCN.
+SPARSE_MODELS = {
+    "gin": ("GIN/peptides_func_GIN", lambda L: {"csr_spmm": 2 * L - 1}),
+    "gcn": ("GCN/voc_superpixels_GCN_sparse",
+            lambda L: {"csr_spmm": 2 * L}),
+    "gat": ("GAT/voc_superpixels_GAT_sparse",
+            lambda L: {"spmm_mh": 4 * L, "sddmm_mh": 3 * L}),
+    "gatedgcn": ("GatedGCN/voc_superpixels_GatedGCN_sparse",
+                 lambda L: {"segment_reduce": 5 * L}),
+}
+
+
+@pytest.mark.parametrize("model", SPARSE_MODELS)
+def test_sparse_mpnn_on_the_card_matches_the_cpu(model):
+    """A sparse-batch config's model at full width on a 4-graph batch with
+    its CSR plan: logits and every parameter gradient on the card (the
+    kernels, launched as ``SPARSE_MODELS`` says) within 1e-4*max|ref| of
+    the CPU's (the kernels' plain versions), in eval mode (no dropout) and
+    under the config's ``matmul_precision`` (GIN's ``highest``: its
+    unnormalised sums give logits of ~100, which TF32's rounding of the
+    Dense inputs moves by ~4e-4 of their largest).  A parameter the loss
+    does not reach (the last GatedGCN layer's edge LayerNorm) has a zero
+    gradient on both."""
     need_card()
     import copy
-    from pathlib import Path
 
-    from graph_hscn_tpu_torch.config.config import load_config
     from graph_hscn_tpu_torch.data.pipeline import DataModule
     from graph_hscn_tpu_torch.models.mpnn import build_mpnn
     from graph_hscn_tpu_torch.runner import set_matmul_precision
+    from graph_hscn_tpu_torch.train.capture import counted_kernels
     from graph_hscn_tpu_torch.train.loss import criterion
-    cfg = load_config(Path(__file__).parents[1] / "configs" / "GIN"
-                      / "peptides_func_GIN.yaml")
-    cfg.data.num_graphs = 16
+    name, per_layer = SPARSE_MODELS[model]
+    cfg = shipped(name, {"data.num_graphs": 16})
     dm = DataModule.from_config(cfg.data)
+    node_level = dm.task_level == "node"
     graphs = dm.split("train")[:4]
     batch = pack_batch(graphs, PadBudget.for_dataset(graphs, 4),
                        with_spmm_plan=True)
-    model = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
-                       generator=torch.Generator().manual_seed(4))
-    model.eval()
+    net = build_mpnn(cfg.mpnn, dm.num_features, dm.num_classes,
+                     readout="none" if node_level else "mean",
+                     generator=torch.Generator().manual_seed(4),
+                     num_edge_features=dm.num_edge_features)
+    net.eval()
     outs = {}
     prev = spmm.get_backend(), torch.get_float32_matmul_precision()
     spmm.set_backend("pallas")
     set_matmul_precision(cfg.runtime.matmul_precision)
     try:
         for dev in ("cpu", "cuda"):
-            m = copy.deepcopy(model).to(dev)
+            m = copy.deepcopy(net).to(dev)
             b = batch.to(dev)
-            before = csr_spmm.launches
+            before = {k.__name__: k.launches for k in counted_kernels()}
             logits = m(b)
-            loss, _ = criterion(cfg.training.loss_fn, logits, b.y,
-                                b.graph_mask)
+            true, mask = ((b.node_y, b.node_mask) if node_level
+                          else (b.y, b.graph_mask))
+            loss, _ = criterion(cfg.training.loss_fn, logits, true, mask)
             loss.backward()
-            outs[dev] = [logits.detach()] + [p.grad for p in m.parameters()]
-            launched = csr_spmm.launches - before
+            outs[dev] = [logits.detach()] + [
+                torch.zeros_like(p) if p.grad is None else p.grad
+                for p in m.parameters()]
+            launched = {k.__name__: k.launches - before[k.__name__]
+                        for k in counted_kernels()}
     finally:
         spmm.set_backend(prev[0])
         set_matmul_precision("highest" if prev[1] == "highest"
                              else "default")
-    assert launched == 2 * cfg.mpnn.num_layers - 1
+    want = dict.fromkeys(launched, 0)
+    want.update(per_layer(cfg.mpnn.num_layers))
+    assert launched == want
     for ref, got in zip(outs["cpu"], outs["cuda"]):
         assert bool(got.isfinite().all())
         assert_close(got, ref, 1e-4)
@@ -1711,28 +1677,40 @@ def test_encoded_model_on_the_card_matches_the_cpu():
 
 # --- the edge-partitioned models (parallel/sharded_gcn.py) ----------------
 
-@pytest.mark.parametrize("conv", ["gcn", "gat"])
+@pytest.mark.parametrize("conv", ["gcn", "gat", "gatedgcn", "hscn"])
 def test_sharded_model_on_the_card_matches_the_cpu(conv):
-    """The sharded GCN and GAT (hidden 64, 4 heads for GAT) on a 1-rank
-    mesh over an 8-graph VOC batch, locality-reordered: the card (a 1-rank
-    NCCL group, the kernels on the local-edge CsrPlan) against the CPU (a
+    """The sharded GCN, GAT and GatedGCN (hidden 64, 4 heads for GAT) and
+    HSCN (hidden 64, 3 layers, 8 clusters, 4 heads) on a 1-rank mesh over
+    an 8-graph VOC batch, locality-reordered: the card (a 1-rank NCCL
+    group, the kernels on the local-edge CsrPlan) against the CPU (a
     1-rank gloo group, the plain path) under matmul_precision highest
     (pinned, then restored): logits within 1e-5*max|ref|, the loss and
-    every gradient within 1e-4*max|ref|; the kernels launched a layer as
-    the fit counts them."""
+    every gradient within 1e-4*max|ref| (0 on both for a parameter the
+    loss does not reach: the last GatedGCN layer's edge LayerNorm); the
+    kernels launched a layer as the fit counts them.  The HSCN takes on
+    both the clusters that the sharded SCN (one GraphConv of 64) assigns
+    on the CPU, and the SCN's MinCUT and orthogonality losses on the card
+    are within 1e-5 relative of the CPU's."""
     need_card()
     import copy
 
     from graph_hscn_tpu_torch.parallel.mesh import make_mesh, process_group
     from graph_hscn_tpu_torch.parallel.sharded_gcn import (
         build_sharded_model, gather_logits, loss_and_grads, partition_arrays)
+    from graph_hscn_tpu_torch.parallel.sharded_hscn import ShardedHSCN
+    from graph_hscn_tpu_torch.parallel.sharded_scn import ShardedSCN
     from graph_hscn_tpu_torch.runner import set_matmul_precision
     graphs = make_voc_superpixels(num_graphs=8, seed=17)
     b = pack_batch(graphs, PadBudget.for_dataset(graphs, 8))
-    model = build_sharded_model(conv, [14, 64, 64, 21], heads=4,
-                                generator=torch.Generator().manual_seed(2))
-    kernels = {"gcn": (csr_spmm,), "gat": (spmm_mh, sddmm_mh)}[conv]
-    outs = {}
+    gen = torch.Generator().manual_seed(2)
+    scn = ShardedSCN(14, [64], 8, generator=gen) if conv == "hscn" else None
+    model = (ShardedHSCN(14, 64, 21, 3, 8, heads=4, generator=gen)
+             if conv == "hscn" else
+             build_sharded_model(conv, [14, 64, 64, 21], heads=4,
+                                 generator=gen))
+    kernels = {"gcn": (csr_spmm,), "gat": (spmm_mh, sddmm_mh),
+               "gatedgcn": (segment_reduce,), "hscn": (csr_spmm,)}[conv]
+    outs, scn_losses, clusters, args = {}, {}, None, ()
     prev = torch.get_float32_matmul_precision()
     set_matmul_precision("highest")
     try:
@@ -1741,21 +1719,36 @@ def test_sharded_model_on_the_card_matches_the_cpu(conv):
                 blk = partition_arrays(
                     b.senders, b.receivers, b.edge_mask, b.node_feat,
                     b.node_y, b.node_mask, make_mesh(("data",), (1,), device),
-                    use_plan=dev == "cuda").block
+                    use_plan=dev == "cuda", outdeg=scn is not None).block
+                if scn is not None:
+                    s = copy.deepcopy(scn).to(device)
+                    with torch.no_grad():
+                        scn_losses[dev] = [float(t) for t in s.losses(blk)]
+                    if clusters is None:
+                        clusters = s.assign(blk).cpu()
+                    args = (clusters.to(device),)
                 m = copy.deepcopy(model).to(device)
                 before = [k.launches for k in kernels]
-                logits = gather_logits(m, blk)
+                logits = gather_logits(m, blk, *args)
                 m.train()
-                loss = loss_and_grads(m, blk)
+                loss = loss_and_grads(m, blk, *args)
                 torch.cuda.synchronize()
                 launched = [k.launches - n for k, n in zip(kernels, before)]
                 outs[dev] = [logits, loss.reshape(1)] + [
-                    p.grad for p in m.parameters()]
+                    torch.zeros_like(p) if p.grad is None else p.grad
+                    for p in m.parameters()]
     finally:
         set_matmul_precision("highest" if prev == "highest" else "default")
     # GCN: 2 layers of width 64 (forward, then forward + transpose); GAT:
-    # 3 layers of H*C >= 64 (spmm_mh forward, forward + dx; sddmm_mh d alpha).
-    assert launched == ([6] if conv == "gcn" else [9, 3])
+    # 3 layers of H*C >= 64 (spmm_mh forward, forward + dx; sddmm_mh d
+    # alpha); GatedGCN: 3 layers, 2 segment sums forward, then 2 + 3
+    # gather-backwards; HSCN: its ll GCNConv in each of 3 layers (forward,
+    # then forward + transpose).
+    assert launched == {"gcn": [6], "gat": [9, 3], "gatedgcn": [21],
+                        "hscn": [9]}[conv]
+    if scn is not None:
+        np.testing.assert_allclose(scn_losses["cuda"], scn_losses["cpu"],
+                                   rtol=1e-5)
     for i, (ref, got) in enumerate(zip(outs["cpu"], outs["cuda"])):
         assert bool(got.isfinite().all())
         assert_close(got, ref, 1e-5 if i == 0 else 1e-4)
@@ -1901,3 +1894,449 @@ def test_prefetched_batches_train_as_inline_ones_on_the_card():
     for a, b in zip(*(r.history for r in results)):
         assert a["train_loss"] == b["train_loss"]
         assert a["validation_loss"] == b["validation_loss"]
+
+
+# --- the runner's routes on the card (run_experiment, run_eval, main) ------
+
+ONE_RANK = {"mesh.shape": [1]}
+# Each route's kernel launches on its shipped config cut to a few graphs,
+# {kernel: (a train step, an eval batch)}; on the mesh routes an eval
+# forward, on a 1-rank NCCL group the runner makes.  The VOC sparse GCN,
+# GAT and GatedGCN at 2 layers: csr_spmm forward and dx a layer; spmm_mh 4
+# and sddmm_mh 3 a layer (1 and 2 an eval batch); segment_reduce 2 sums
+# forward and 3 gather-backwards a layer.  The peptides configs on the
+# device route: the fused stack's two kernels once a step (counted per
+# replay), the unfused MPNN none.  The sparse HSCN: the
+# ll GCNConv of each of its 3 layers, forward and dx (none while
+# clustering); GIN on sparse batches: 3 forwards and 2 transposes; the
+# three GPS configs on the captured device route (peptides-func's GCN
+# local module, peptides-struct's GatedGCN one with its cosine schedule,
+# VOC's node-level one): a graph_attn a layer (4) and its backward,
+# counted per replay; the PE config, its SignNet frozen into the features
+# or trained inside the captured graphs: none; the edge-partitioned and
+# hybrid fits: the layers at least WIDTH_GATE wide (GCN and the HSCN's ll
+# GCN 3, GAT's 4 of H*C >= 64, GatedGCN 4: 2 segment sums forward and 3
+# gather-backwards a layer; the hybrid GAT's one head of 64, 3), GIN none.
+TWO_LAYERS = {"data.num_graphs": 48, "mpnn.num_layers": 2}
+GPS_ATTN = {"graph_attn": (4, 4), "graph_attn_bwd": (4, 0)}
+LAUNCH_ROUTES = {
+    "voc_gcn_sparse": ("GCN/voc_superpixels_GCN_sparse", TWO_LAYERS,
+                       {"csr_spmm": (4, 2)}),
+    "voc_gat_sparse": ("GAT/voc_superpixels_GAT_sparse", TWO_LAYERS,
+                       {"spmm_mh": (8, 2), "sddmm_mh": (6, 4)}),
+    "voc_gatedgcn_sparse": ("GatedGCN/voc_superpixels_GatedGCN_sparse",
+                            TWO_LAYERS, {"segment_reduce": (10, 4)}),
+    "peptides_fused": ("GCN/peptides_func_GCN_fused", {"data.num_graphs": 96},
+                       {"fused_gcn_fwd": (1, 1), "fused_gcn_bwd": (1, 0)}),
+    "peptides": ("GCN/peptides_func_GCN", {"data.num_graphs": 96}, {}),
+    "voc_hscn_sparse": ("HSCN/voc_superpixels_HSCN_sparse",
+                        {"data.num_graphs": 48, "hscn.cluster_epochs": 1},
+                        {"csr_spmm": (6, 3)}),
+    "gin_sparse": ("GIN/peptides_func_GIN",
+                   {"data.num_graphs": 96, "runtime.dense_path": "sparse",
+                    "runtime.device_dataset": "off"},
+                   {"csr_spmm": (5, 3)}),
+    "gps": ("GPS/peptides_func_GPS", {"data.num_graphs": 96}, GPS_ATTN),
+    "gps_struct": ("GPS/peptides_struct_GPS", {"data.num_graphs": 96},
+                   GPS_ATTN),
+    "gps_voc": ("GPS/voc_superpixels_GPS", {"data.num_graphs": 48},
+                GPS_ATTN),
+    "pe_frozen": ("GCN/peptides_func_GCN_PE", {"data.num_graphs": 96}, {}),
+    "pe_trainable": ("GCN/peptides_func_GCN_PE",
+                     {"data.num_graphs": 96,
+                      "compat.frozen_random_signnet": False}, {}),
+    "edge_partition_gcn": ("GCN/voc_superpixels_GCN_edge_partition",
+                           {**ONE_RANK, "data.num_graphs": 48},
+                           {"csr_spmm": (6, 3)}),
+    "edge_partition_gat": ("GAT/voc_superpixels_GAT_edge_partition",
+                           {**ONE_RANK, "data.num_graphs": 48},
+                           {"spmm_mh": (8, 4), "sddmm_mh": (4, 0)}),
+    "edge_partition_gin": ("GCN/voc_superpixels_GCN_edge_partition",
+                           {**ONE_RANK, "data.num_graphs": 48,
+                            "mpnn.conv_type": "gin"}, {}),
+    "edge_partition_gatedgcn": (
+        "GatedGCN/voc_superpixels_GatedGCN_edge_partition",
+        {**ONE_RANK, "data.num_graphs": 48}, {"segment_reduce": (20, 8)}),
+    "edge_partition_hscn": ("HSCN/voc_superpixels_HSCN_edge_partition",
+                            {"data.num_graphs": 48,
+                             "hscn.cluster_epochs": 1},
+                            {"csr_spmm": (6, 3)}),
+    "hybrid_gcn": ("GCN/voc_superpixels_GCN_hybrid",
+                   {"mesh.shape": [1, 1], "data.num_graphs": 48},
+                   {"csr_spmm": (6, 3)}),
+    "hybrid_gat": ("GCN/voc_superpixels_GCN_hybrid",
+                   {"mesh.shape": [1, 1], "data.num_graphs": 48,
+                    "mpnn.conv_type": "gat"},
+                   {"spmm_mh": (6, 3), "sddmm_mh": (3, 0)}),
+}
+
+
+def fit_shipped(name: str, changes: dict, epochs: int = 2,
+                data_parallel: bool = False):
+    """run_experiment of a shipped config with ``changes``, ``epochs``
+    epochs and an eval each (``data_parallel``: fit_dp, as
+    run_experiment's); ({kernel: launches in the run}, the FitResult)."""
+    from graph_hscn_tpu_torch.runner import run_experiment
+    from graph_hscn_tpu_torch.train.capture import counted_kernels
+    cfg = shipped(name, changes)
+    cfg.training.epochs, cfg.training.eval_period = epochs, 1
+    before = {k.__name__: k.launches for k in counted_kernels()}
+    result = run_experiment(cfg, data_parallel=data_parallel)
+    return {k.__name__: k.launches - before[k.__name__]
+            for k in counted_kernels()}, result
+
+
+def assert_launched(launched: dict, result, per: dict) -> None:
+    """Finite losses, and every kernel's launches ``per``'s {kernel: (a
+    train step, an eval batch)} over the fit's steps and eval batches (0
+    for a kernel left out)."""
+    steps, evals = result.num_train_steps, result.num_eval_batches
+    assert steps > 0 and evals > 0
+    losses = [v for h in result.history for k, v in h.items()
+              if k.endswith("_loss")]
+    assert losses and np.isfinite(losses).all()
+    want = dict.fromkeys(launched, 0)
+    want.update({k: a * steps + b * evals for k, (a, b) in per.items()})
+    assert launched == want
+
+
+@pytest.mark.parametrize("route", LAUNCH_ROUTES)
+def test_run_experiment_launches_each_routes_kernels(route):
+    """Each route through run_experiment, 2 epochs: finite losses, and
+    every kernel's launches those of ``LAUNCH_ROUTES`` (0 for a kernel the
+    route does not run)."""
+    need_card()
+    name, changes, per = LAUNCH_ROUTES[route]
+    assert_launched(*fit_shipped(name, changes), per)
+
+
+# configs/GCN/peptides_func_GCN_dp8.yaml's widths (global batch 128,
+# hidden 128, 5 layers) on one rank, without dropout, and its fused and
+# sparse twins: {kernel: (a train step, an eval batch)}, the fused stack's
+# two kernels once a step, csr_spmm forward and dx in each layer.
+DP_ROUTES = {
+    "dense": ({}, {}),
+    "fused": ({"runtime.fused_stack": "on"},
+              {"fused_gcn_fwd": (1, 1), "fused_gcn_bwd": (1, 0)}),
+    "sparse": ({"runtime.dense_path": "sparse"}, {"csr_spmm": (10, 5)}),
+}
+
+
+@pytest.mark.parametrize("route", DP_ROUTES)
+def test_fit_dp_at_one_rank_follows_the_single_device_fit(route):
+    """fit_dp (run_experiment's data_parallel) on a 1-rank NCCL group, 256
+    graphs, 2 epochs: every kernel's launches as ``DP_ROUTES`` counts them,
+    and each epoch's train, val and test loss within 1e-5 relative of the
+    single-device host fit of the same model from the same seed on the
+    same global batches."""
+    need_card()
+    from graph_hscn_tpu_torch.parallel.data_parallel import pack_for_devices
+    from graph_hscn_tpu_torch.runner import _data, _model, _setup_run
+    from graph_hscn_tpu_torch.train.loop import fit
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    name = "GCN/peptides_func_GCN_dp8"
+    twin, per = DP_ROUTES[route]
+    changes = {**ONE_RANK, "data.num_graphs": 256, "mpnn.dropout": 0.0,
+               **twin}
+    launched, dp = fit_shipped(name, changes, data_parallel=True)
+    assert_launched(launched, dp, per)
+    cfg = shipped(name, changes)
+    cfg.training.epochs, cfg.training.eval_period = 2, 1
+    device, dtype = _setup_run(cfg, torch.device("cuda"))
+    logger = Logger(quiet=True)
+    dm = _data(cfg, device, logger)
+    budget = PadBudget.for_dataset(dm.graphs, dm.batch_size)
+
+    def global_batches(split, seed=None):
+        graphs = dm.split(split)
+        idx = np.arange(len(graphs))
+        if seed is not None:
+            np.random.default_rng(seed).shuffle(idx)
+        return [pack_for_devices([graphs[int(j)] for j in
+                                  idx[i:i + dm.batch_size]], 1, budget,
+                                 slot_nodes=dm.slot_nodes,
+                                 with_spmm_plan=dm.with_spmm_plan)[0]
+                for i in range(0, len(idx), dm.batch_size)]
+
+    ref = fit(_model(cfg, dm, device, dtype, logger),
+              lambda epoch: global_batches("train",
+                                           cfg.training.seed + epoch),
+              global_batches("val"), global_batches("test"), cfg.optim,
+              cfg.training, logger, device,
+              compat_sigmoid_score=cfg.compat.sigmoid_regression_score)
+    assert len(dp.history) == len(ref.history) == 2
+    for a, b in zip(dp.history, ref.history):
+        for key in ("train_loss", "validation_loss", "test_loss"):
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-5)
+
+
+# Eval-only mode: (config, changes, the kernel an eval forward launches and
+# how often, the eval forwards: None for the host batches of val and test).
+EVAL_ROUTES = {
+    "fused": ("GCN/peptides_func_GCN_fused", {"data.num_graphs": 96},
+              "fused_gcn_fwd", 1, None),
+    "voc_sparse": ("GCN/voc_superpixels_GCN_sparse", {"data.num_graphs": 48},
+                   "csr_spmm", 4, None),
+    "edge_partition_gcn": ("GCN/voc_superpixels_GCN_edge_partition",
+                           {**ONE_RANK, "data.num_graphs": 48}, "csr_spmm",
+                           3, 2),
+    "hybrid_gcn": ("GCN/voc_superpixels_GCN_hybrid",
+                   {"mesh.shape": [1, 1], "data.num_graphs": 48},
+                   "csr_spmm", 3, 2),
+}
+
+
+@pytest.mark.parametrize("route", EVAL_ROUTES)
+def test_run_eval_and_predict_on_the_card(route, tmp_path):
+    """A 2-epoch fit snapshotted into ``training.checkpoint_dir``; then
+    run_eval(cfg, "best"): the val loss the fit's best within rtol 1e-5,
+    atol 1e-6 (the JAX package's criterion, tests/test_checkpoint.py), its
+    kernel launched once a forward as counted; then ``python -m
+    graph_hscn_tpu_torch.main --eval best --predict out.npz`` in a
+    subprocess: val and test scores and targets, finite, a row for each
+    real graph (each real node at node level)."""
+    need_card()
+    import subprocess
+    import sys
+
+    import yaml
+
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.runner import _data, run_eval
+    from graph_hscn_tpu_torch.train.capture import counted_kernels
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    name, changes, kernel, per, forwards = EVAL_ROUTES[route]
+    changes = {**changes, "training.checkpoint_dir": str(tmp_path / "ck")}
+    _, fit = fit_shipped(name, changes)
+    cfg = shipped(name, changes)
+    if forwards is None:
+        dm = _data(cfg, torch.device("cuda"), Logger(quiet=True))
+        forwards = len(dm.eval_batches("val")) + len(dm.eval_batches("test"))
+    before = {k.__name__: k.launches for k in counted_kernels()}
+    scores = run_eval(cfg, "best")
+    launched = {k.__name__: k.launches - before[k.__name__]
+                for k in counted_kernels()}
+    np.testing.assert_allclose(scores["val"]["loss"], fit.best_val_loss,
+                               rtol=1e-5, atol=1e-6)
+    assert launched == {**dict.fromkeys(launched, 0),
+                        kernel: per * forwards}
+    cfg_file, out = tmp_path / "cfg.yaml", tmp_path / "out.npz"
+    cfg_file.write_text(yaml.safe_dump(shipped_raw(name, changes)))
+    run = subprocess.run(
+        [sys.executable, "-m", "graph_hscn_tpu_torch.main", "--cfg",
+         str(cfg_file), "--eval", "best", "--predict", str(out)],
+        cwd=CONFIGS.parent, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    z = np.load(out)
+    assert set(z.files) == {"val_scores", "val_targets", "test_scores",
+                            "test_targets"}
+    dm = DataModule.from_config(cfg.data)
+    for split in ("val", "test"):
+        rows = (len(dm.split_idx[split]) if dm.task_level == "graph"
+                else sum(g.num_nodes for g in dm.split(split)))
+        for k in ("scores", "targets"):
+            a = z[f"{split}_{k}"]
+            assert a.shape == (rows, dm.num_classes)
+            assert np.isfinite(a).all()
+
+
+class _Cut(Exception):
+    pass
+
+
+@pytest.mark.parametrize("route", ["voc_sparse", "edge_partition_gcn",
+                                   "edge_partition_hscn"])
+def test_run_experiment_resumed_mid_run_follows_the_uninterrupted_one(
+        route, tmp_path, monkeypatch):
+    """The host loop (the sparse VOC GCN, dropout 0.1) and the
+    edge-partitioned GCN and HSCN on a 1-rank NCCL group, 4 epochs
+    snapshotted each epoch: uninterrupted, then cut after epoch 1's latest
+    snapshot and run again, resuming from it.  Epochs 2-3's train losses
+    within 1e-6 relative of the uninterrupted run's."""
+    need_card()
+    from graph_hscn_tpu_torch import runner
+    from graph_hscn_tpu_torch.train.checkpoint import Checkpointer
+    name, changes = {
+        "voc_sparse": ("GCN/voc_superpixels_GCN_sparse", {}),
+        "edge_partition_gcn": ("GCN/voc_superpixels_GCN_edge_partition",
+                               ONE_RANK),
+        "edge_partition_hscn": ("HSCN/voc_superpixels_HSCN_edge_partition",
+                                {"hscn.cluster_epochs": 1})}[route]
+
+    def cfg(directory):
+        c = shipped(name, {**changes, "data.num_graphs": 48,
+                           "training.checkpoint_dir": str(directory),
+                           "training.checkpoint_every": 1,
+                           "training.patience": 1000})
+        c.training.epochs, c.training.eval_period = 4, 1
+        return c
+
+    class Stopping(Checkpointer):
+        def save_latest(self, state, epoch):
+            super().save_latest(state, epoch)
+            if epoch == 1:
+                raise _Cut
+
+    full = runner.run_experiment(cfg(tmp_path / "full"))
+    with monkeypatch.context() as m:
+        m.setattr(runner, "Checkpointer", Stopping)
+        with pytest.raises(_Cut):
+            runner.run_experiment(cfg(tmp_path / "cut"))
+    resumed = runner.run_experiment(cfg(tmp_path / "cut"))
+    assert [h["epoch"] for h in resumed.history] == [2, 3]
+    np.testing.assert_allclose([h["train_loss"] for h in resumed.history],
+                               [h["train_loss"] for h in full.history[2:]],
+                               rtol=1e-6)
+
+
+def test_hscn_clusters_alike_on_the_host_and_device_routes():
+    """configs/HSCN/peptides_func_HSCN.yaml cut to 64 graphs and 2
+    clustering epochs: the host clustering (what run_eval runs again) and
+    the device route's captured clustering (what the device route trains
+    with), each from the SCN weights its route draws, give every graph the
+    same clusters."""
+    need_card()
+    from graph_hscn_tpu_torch import hscn_pipeline as hp
+    from graph_hscn_tpu_torch.data.pipeline import DataModule
+    from graph_hscn_tpu_torch.train.clustering import train_clustering_device
+    from graph_hscn_tpu_torch.train.device_data import DeviceDataset
+    from graph_hscn_tpu_torch.utils.logger import Logger
+    cfg = shipped("HSCN/peptides_func_HSCN",
+                  {"data.num_graphs": 64, "hscn.cluster_epochs": 2})
+    dm = DataModule.from_config(cfg.data)
+    dm.enable_dense_slots()
+    hp.cluster_on_host(cfg, dm, Logger(quiet=True), torch.device("cuda"))
+    order = np.concatenate([dm.split_idx[s] for s in ("train", "val",
+                                                      "test")])
+    ds = DeviceDataset.build([dm.graphs[i] for i in order],
+                             slot=dm.slot_nodes, device="cuda",
+                             with_cluster=True)
+    scn, _ = hp._models(cfg, dm, ds.slot, torch.device("cuda"), None)
+    ds, _ = train_clustering_device(Logger(quiet=True), ds, dm.batch_size,
+                                    scn, cfg.hscn, cfg.optim,
+                                    seed=cfg.training.seed)
+    device_clusters = ds.cluster.cpu().numpy()
+    for i, g in enumerate(order):
+        host = dm.graphs[g].cluster
+        np.testing.assert_array_equal(device_clusters[i, :len(host)], host)
+
+
+def test_profile_dir_traces_the_replayed_fused_kernels():
+    """runtime.profile_dir over the fused peptides config's captured fit
+    (2 epochs): one Chrome trace, whose fused_gcn_fwd and fused_gcn_bwd
+    kernel events (those inside replayed graphs included) equal the
+    wrappers' replay accounting."""
+    need_card()
+    import json
+    import tempfile
+    with tempfile.TemporaryDirectory() as trace_dir:
+        launched, result = fit_shipped(
+            "GCN/peptides_func_GCN_fused",
+            {"data.num_graphs": 96, "runtime.profile_dir": trace_dir})
+        files = sorted(Path(trace_dir).glob("*.pt.trace.json"))
+        assert len(files) == 1
+        events = json.loads(files[0].read_text())["traceEvents"]
+    assert result.replays["train"] > 0
+    for kernel in ("fused_gcn_fwd", "fused_gcn_bwd"):
+        seen = sum(1 for e in events if e.get("cat") == "kernel"
+                   and f"{kernel}_kernel" in e.get("name", ""))
+        assert seen == launched[kernel] > 0
+
+
+@pytest.mark.parametrize("route", ["fused", "voc_sparse"])
+def test_debug_nans_on_the_card(route):
+    """runtime.debug_nans on the captured route (the fused peptides config:
+    a check an epoch, outside the graphs) and the host loop (the sparse
+    VOC GCN, csr_spmm: a check a step): the losses with the guard equal
+    the losses without, bit for bit (the fused route's under torch's
+    deterministic algorithms: its readout's index_add_ sums in a
+    run-dependent order otherwise); NaN in every graph raises
+    FloatingPointError."""
+    need_card()
+    import contextlib
+
+    import torch.utils.deterministic as det
+    from torch_dist import poisoned
+
+    from graph_hscn_tpu_torch.data import pipeline
+    from graph_hscn_tpu_torch.runner import run_experiment
+    from graph_hscn_tpu_torch.utils.profiling import nan_guard
+    name, changes = {
+        "fused": ("GCN/peptides_func_GCN_fused", {"data.num_graphs": 96}),
+        "voc_sparse": ("GCN/voc_superpixels_GCN_sparse",
+                       {"data.num_graphs": 48})}[route]
+
+    @contextlib.contextmanager
+    def deterministic():
+        saved = (torch.are_deterministic_algorithms_enabled(),
+                 det.fill_uninitialized_memory)
+        torch.use_deterministic_algorithms(True)
+        det.fill_uninitialized_memory = False
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(saved[0])
+            det.fill_uninitialized_memory = saved[1]
+
+    losses = []
+    try:
+        with deterministic() if route == "fused" else contextlib.nullcontext():
+            for nans in (False, True):
+                nan_guard(False)
+                result = fit_shipped(name, {**changes,
+                                            "runtime.debug_nans": nans})[1]
+                losses.append([(h["train_loss"], h["validation_loss"],
+                                h["test_loss"]) for h in result.history])
+        assert losses[0] == losses[1]
+        assert np.isfinite(losses[0]).all()
+        nan_guard(False)
+        cfg = shipped(name, {**changes, "runtime.debug_nans": True})
+        cfg.training.epochs = 2
+        with poisoned(pipeline, "all"), pytest.raises(FloatingPointError,
+                                                       match="nan"):
+            run_experiment(cfg)
+    finally:
+        nan_guard(False)
+
+
+def test_batched_eigh_on_the_card_matches_the_host_stats():
+    """batched_eigh in float64 on the card (cuSOLVER) against the host
+    stats (numpy's LAPACK) of 4 peptides graphs: every real eigenvalue
+    within 1e-5, and the projector onto the k smallest eigenvectors (k <=
+    6, after the widest spectral gap there) within 1e-4."""
+    need_card()
+    from graph_hscn_tpu_torch.data.synthetic import make_peptides_func
+    from graph_hscn_tpu_torch.transform.posenc import (batched_eigh,
+                                                       compute_posenc_stats)
+    graphs = make_peptides_func(num_graphs=4, seed=7)
+    n_max = max(g.num_nodes for g in graphs)
+    adj = np.zeros((4, n_max, n_max))
+    mask = np.zeros((4, n_max), bool)
+    for i, g in enumerate(graphs):
+        np.add.at(adj[i], (g.edge_index[1], g.edge_index[0]), 1.0)
+        mask[i, :g.num_nodes] = True
+    evals, evects = batched_eigh(torch.from_numpy(adj).cuda(),
+                                 torch.from_numpy(mask).cuda())
+    evals, evects = evals.cpu().numpy(), evects.cpu().numpy()
+    for i, g in enumerate(graphs):
+        n = g.num_nodes
+        host = compute_posenc_stats(g, max_freqs=n)
+        # Padding adds eigenvalue-1 pairs with no support on real nodes.
+        real = np.sort(np.argsort(-np.abs(evects[i, :n]).sum(0))[:n])
+        lam, vec = evals[i][real], evects[i, :n][:, real]
+        np.testing.assert_allclose(lam, host.eigvals[0], atol=1e-5)
+        k = 1 + int(np.argmax(np.diff(lam[:7])))
+        p, q = vec[:, :k], host.eigvecs[:, :k]
+        np.testing.assert_allclose(p @ p.T, q @ q.T, atol=1e-4)
+
+
+def test_walkthrough_runs_on_the_card():
+    """Every stage of the HSCN walkthrough (graph_hscn_tpu_torch/examples)
+    at its own sizes, on the card: 64 graphs clustered, finite losses."""
+    need_card()
+    from graph_hscn_tpu_torch.examples import hscn_walkthrough
+    out = hscn_walkthrough.main(["--device", "cuda"])
+    assert len(out["clusters"]) == 64
+    for stage in ("fit", "giant", "feedback"):
+        losses = [h["train_loss"] for h in out[stage].history]
+        assert losses and np.isfinite(losses).all(), stage

@@ -209,8 +209,8 @@ def _stack_without(skip, a_hat, x, ws, bs, bits, g, rate):
 
 @pytest.mark.parametrize("skip", ["y", "hidden", "dz", "dy"])
 def test_bf16_tolerance_catches_a_missing_rounding_point(setup, skip):
-    """The card's bf16 tolerance (1e-4*max|ref| an output, chip_smoke.py
-    and tests/test_torch_cuda.py) fails a kernel that leaves out one of
+    """The card's bf16 tolerance (1e-4*max|ref| an output,
+    tests/test_torch_cuda.py) fails a kernel that leaves out one of
     the Pallas kernel's bf16 rounding points: its error stands far above
     the tolerance, while the transcription with every point in place
     equals the plain version bit for bit."""

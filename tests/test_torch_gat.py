@@ -245,8 +245,8 @@ def _spmm_mh_other_rounding(x, alpha, row_ptr, col, rule):
 
 @pytest.mark.parametrize("rule", ["unrounded", "csr_spmm"])
 def test_bf16_tolerance_catches_a_missing_rounding_point(batches, rule):
-    """The card's bf16 tolerance for spmm_mh (1e-4*max|ref|, chip_smoke.py
-    and tests/test_torch_cuda.py) fails a kernel that rounds its terms by
+    """The card's bf16 tolerance for spmm_mh (1e-4*max|ref|,
+    tests/test_torch_cuda.py) fails a kernel that rounds its terms by
     another rule, while the plain version agrees with the Pallas kernel in
     interpret mode far inside it."""
     jbatch, tbatch = batches

@@ -277,7 +277,8 @@ def test_sparse_gin_runs_csr_spmm_in_every_conv(monkeypatch, pallas_backend):
     calls csr_spmm forward, and the transpose for dx in every layer but
     the first (its input, the node features, takes no gradient), so 3
     forwards and 2 transposes a train step, 3 forwards an eval batch, as
-    chip_smoke.py counts the kernel's launches on the card."""
+    tests/test_torch_cuda.py counts the kernel's launches on the card
+    (test_run_experiment_launches_each_routes_kernels[gin_sparse])."""
     cfg = _small(**{"runtime.dense_path": "sparse",
                     "runtime.device_dataset": "off",
                     "runtime.spmm_backend": "pallas"})

@@ -40,7 +40,7 @@ CSRC = (Path(__file__).resolve().parents[1] / "graph_hscn_tpu_torch"
         / "csrc")
 DTYPES = [torch.float32, torch.bfloat16]
 RULES = {"csr_spmm": csr_spmm_plan, "edge_sddmm": edge_sddmm_plan}
-# The widths chip_smoke.py launches the two kernels at: the VOC GCN path's
+# The widths chip_smoke.py times the two kernels at: the VOC GCN path's
 # 64 and 21, the lattices' 128, and the floor's 1.
 SMOKE_WIDTHS = [1, 21, 64, 128]
 
@@ -133,8 +133,8 @@ def test_plans_are_pure_cached_and_refuse_empty_rows(kernel):
 def test_the_sources_build_every_plan_and_the_card_tests_reach_it(kernel,
                                                                   dtype):
     """Over F = 1..4096 the rule's plans are the C source's instances, no
-    more and no fewer; chip_smoke.py's widths are among them, and the card
-    tests' widths (ROW_WIDTHS) reach each of them."""
+    more and no fewer; chip_smoke.py's timed widths are among them, and the
+    card tests' widths (ROW_WIDTHS) reach each of them."""
     built = source_instances(kernel, dtype)
     assert built
     rule = RULES[kernel]

@@ -3,7 +3,8 @@ the port's mesh tests (tests/test_torch_edge_partition.py,
 tests/test_torch_sharded_*.py, tests/test_torch_data_parallel.py,
 tests/test_torch_hybrid.py, tests/test_torch_profiling.py and
 tests/test_torch_tracing.py); its
-:func:`poisoned` data also serves chip_smoke.py's ``debug_nans`` phase.
+:func:`poisoned` data also serves tests/test_torch_cuda.py's
+``debug_nans`` case on the card.
 
     outs = spawn("sharded_model", world=4, args={...}, tmp=tmp_path)
 
